@@ -1,0 +1,1 @@
+"""Device path of the PyTorch port (see the package docstring)."""
