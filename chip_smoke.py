@@ -12,17 +12,26 @@ Phases (any failure exits non-zero without the final result line):
    (``sm_90a``), one compiler per source, all at once.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, with ``torch.equal`` (exact: every value is int32), at the
-   shapes the main path gives it; then CUDA-event timings of kernel, plain
-   version and, where one exists, the single PyTorch call computing the
-   same function, beside the bound: the larger of the bytes at 3.35 TB/s
-   and the integer operations at 67 T/s.
+   shapes the main path gives it (``fused_scan`` with each of its four call
+   sites' group lists and two generic lists, also beyond its 16384-lane
+   gate); then CUDA-event timings beside the bound (the larger of the
+   bytes at 3.35 TB/s and the integer operations at 67 T/s): the kernel
+   and, where one exists, the single PyTorch call computing the same
+   function, each replayed from a CUDA graph (device time); the wrapper's
+   eager call (host cost included); and the plain version.
 4. Main path: a seeded synthetic Danish/English corpus of >= 20,000
    documents whose lengths fill all five default buckets is written to
    Parquet and run through the port's ``run`` entry point on ``cuda`` with
-   ``configs/pipeline_config_offline.yaml``, then through the port's host
-   oracle (sharded over the CPU cores, one process per shard).  The kept and excluded sets must be equal id for id (text and
-   metadata), every default bucket must have been dispatched, and every
-   kernel's launch counter must have grown during the device run.
+   ``configs/pipeline_config_offline.yaml`` twice: under the fused
+   schedule (the default), then under the staged schedule
+   (``TEXTBLAST_FUSED=off``, on the first 5,000 documents when time is
+   short), then once through the port's host oracle (sharded over the CPU
+   cores, one process per shard).  Each run's kept and excluded sets must
+   equal the oracle's id for id (text and metadata); the fused run must
+   dispatch every default bucket and launch ``fused_scan``,
+   ``affine_scan``, ``dfa_scan`` and ``sort2``; the staged run must launch
+   the last three and never ``fused_scan``.  Launch counters are set to 0
+   just before each run and read just after.
 5. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +56,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # gives no int32 rate, so the kernels' integer operations are held to it.
 OPS_PER_S = 67e12
 N_DOCS = int(os.environ.get("CHIP_SMOKE_DOCS", "20000"))
+STAGED_SUBSET = 5000  # the staged run's documents when time is short
 SEED = 20251016
 
 # Word lists copied from the repo's bench.py (Danish / English prose).
@@ -204,6 +214,8 @@ def host_oracle(inp: str, work: str):
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
+    """CUDA-event time of one eager call of ``fn``, after warm-up: where the
+    host's per-call cost exceeds the device work, this is the host's."""
     import torch
 
     for _ in range(2):
@@ -218,6 +230,33 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the call is captured once in a
+    CUDA graph and replayed ``iters`` times between CUDA events, so the
+    wrapper's host cost (checks, ctypes, allocation) is not in the figure.
+    Replays reuse the same inputs, which may stay in the 50 MB L2."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the integer operations over the CUDA-core rate."""
@@ -225,6 +264,60 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     t_ops = n_ops / OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fused_site_lists(full_range, packed_maps, shape):
+    """name -> the group list of ``fused_scan`` at each of its four call
+    sites (``ops/stats.py``), on fresh full-range inputs of ``shape``, plus
+    two generic lists: dfa groups at 4, 5 and 8 states, affine k = 1..4,
+    add scans, and ``emit="last"`` on every kind."""
+    from textblaster_tpu_torch.ops import scan
+
+    def r(n):
+        return tuple(full_range(shape) for _ in range(n))
+
+    aff, add, dfa = scan.affine_group, scan.add_group, scan.dfa_group
+    return {
+        # structure: the packed aggregates (length <= 8192) and the hashes.
+        "structure": lambda: [aff(*r(1), r(2)), aff(*r(1), r(2))],
+        "structure_nohash": lambda: [aff(*r(1), r(2))],
+        # structure above 8192 lanes: the unpacked four-accumulator group.
+        "structure_wide": lambda: [aff(*r(1), r(4)), aff(*r(1), r(2))],
+        # gopher_quality: three segmented adds and five row totals.
+        "gopher_quality": lambda: [aff(*r(1), r(1)), aff(*r(1), r(1)), aff(*r(1), r(1)),
+                                   add(r(5), emit="last")],
+        # fineweb: the line group, the line hash, the reversed counter, totals.
+        "fineweb": lambda: [aff(*r(1), r(3)), aff(*r(1), r(1)), aff(*r(1), r(1)),
+                            add(r(2), emit="last")],
+        "c4_trim": lambda: [aff(*r(1), r(1)), aff(*r(1), r(1))],
+        "generic_a": lambda: [dfa(packed_maps(shape, 4), 4), dfa(packed_maps(shape, 5), 5),
+                              dfa(packed_maps(shape, 8), 8), aff(*r(1), r(1)),
+                              aff(*r(1), r(2)), aff(*r(1), r(3))],
+        "generic_b": lambda: [aff(*r(1), r(4)), aff(*r(1), r(2), emit="last"), add(r(2)),
+                              add(r(2), emit="last"), dfa(packed_maps(shape, 4), 4, emit="last"),
+                              dfa(packed_maps(shape, 8), 8, emit="last")],
+    }
+
+
+def fused_cost(groups):
+    """(bytes, operations) the fused scan must spend on ``groups``: each
+    input read once, each scanned output written once, each final carry
+    written once; per element an affine group does 1 + 2k operations, an
+    add stream 1, and a DFA group 5 per state."""
+    b, n = groups[0]["xs"][0].shape
+    n_bytes = ops = 0.0
+    for g in groups:
+        n_in = len(g["xs"])
+        n_out = n_in - 1 if g["kind"] == "affine" else n_in
+        last = g.get("emit") == "last"
+        n_bytes += 4.0 * b * n * (n_in + (0 if last else n_out)) + (4.0 * b * n_out if last else 0)
+        if g["kind"] == "affine":
+            ops += b * n * (1 + 2 * (n_in - 1))
+        elif g["kind"] == "add":
+            ops += b * n * n_in
+        else:
+            ops += b * n * 5 * g["n_states"]
+    return n_bytes, ops
 
 
 def kernel_phase():
@@ -288,8 +381,25 @@ def kernel_phase():
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             fail(f"sort2 differs from its plain version at {[rows, width]}")
         errs["sort2"] = max(errs["sort2"], max_err(got, want))
+    # fused_scan: every call site's group list and the generic lists, at the
+    # fused buckets, beyond the gate (any width works) and a ragged shape.
+    errs["fused_scan"] = 0
+    fused_shapes = [(64, n) for n in (512, 2048, 8192, 16384, 32768, 65536)] + [(37, 1000)]
+    for shape in fused_shapes:
+        for name, make in fused_site_lists(full_range, packed_maps, shape).items():
+            groups = make()
+            got = scan.fused_scan(groups)
+            torch.cuda.synchronize()
+            want = scan.fused_scan_plain(groups)
+            for g, w in zip(got, want):
+                if len(g) != len(w) or not all(
+                    x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w)
+                ):
+                    fail(f"fused_scan differs from its plain version at {shape}, list {name}")
+                errs["fused_scan"] = max(errs["fused_scan"], max_err(g, w))
+            del groups, got, want
     print(f"kernels exact: affine_scan and dfa_scan at {scan_shapes}, "
-          f"sort2 at {sort_shapes}", flush=True)
+          f"sort2 at {sort_shapes}, fused_scan at {fused_shapes}", flush=True)
 
     # Timings: per shape (written to the JSON file), and the representative
     # main-path call per kernel (the kernels line).
@@ -302,7 +412,8 @@ def kernel_phase():
             # multiply for m and a multiply-add per accumulator.
             "affine_scan": dict(
                 shape=list(shape), k=2,
-                ms=cuda_ms(lambda: scan.affine_hash_scan(m, (a1, a2))),
+                ms=graph_ms(lambda: scan.affine_hash_scan(m, (a1, a2))),
+                call_ms=cuda_ms(lambda: scan.affine_hash_scan(m, (a1, a2))),
                 plain_ms=cuda_ms(lambda: scan.affine_hash_scan_plain(m, (a1, a2)), 3),
                 library_ms=None,
                 **bound(4.0 * b * n * (1 + 2 * 2), b * n * (1 + 2 * 2)),
@@ -311,7 +422,8 @@ def kernel_phase():
             # extract (shift, mask) and a lookup-insert (shift, mask, or).
             "dfa_scan": dict(
                 shape=list(shape), n_states=5,
-                ms=cuda_ms(lambda: scan.dfa_compose_scan(f, 5)),
+                ms=graph_ms(lambda: scan.dfa_compose_scan(f, 5)),
+                call_ms=cuda_ms(lambda: scan.dfa_compose_scan(f, 5)),
                 plain_ms=cuda_ms(lambda: scan.dfa_compose_scan_plain(f, 5), 3),
                 library_ms=None,
                 **bound(4.0 * b * n * 2, b * n * 5 * 5),
@@ -329,9 +441,10 @@ def kernel_phase():
         exchanges = rows * (1 << lg) // 2 * lg * (lg + 1) // 2
         return dict(
             shape=[rows, width],
-            ms=cuda_ms(lambda: sort.sort2(k1, k2)),
+            ms=graph_ms(lambda: sort.sort2(k1, k2)),
+            call_ms=cuda_ms(lambda: sort.sort2(k1, k2)),
             plain_ms=cuda_ms(lambda: sort.sort2_plain(k1, k2), 3),
-            library_ms=cuda_ms(lambda: torch.sort(z, dim=1), 3),
+            library_ms=graph_ms(lambda: torch.sort(z, dim=1)),
             **bound(16.0 * rows * width, 3.0 * exchanges),
         )
 
@@ -345,8 +458,26 @@ def kernel_phase():
     for rows, width in ((256, 256), (256, 512), (256, 2048), (256, 8192),
                         (256, 16384), (320, 16384), (64, 32768), (64, 65536)):
         per_shape.append({"kernel": "sort2", **time_sort(rows, width)})
+    # Each fused call site's list at the three fused default buckets.  No
+    # single PyTorch call computes a multi-group scan: library_ms is null.
+    for n in (512, 2048, 8192):
+        shape = (64, n)
+        for name, make in fused_site_lists(full_range, packed_maps, shape).items():
+            if name.startswith("generic") or (name == "structure_wide") != (n > 8192):
+                continue
+            groups = make()
+            per_shape.append(dict(
+                kernel="fused_scan", site=name, shape=list(shape),
+                ms=graph_ms(lambda: scan.fused_scan(groups)),
+                call_ms=cuda_ms(lambda: scan.fused_scan(groups)),
+                plain_ms=cuda_ms(lambda: scan.fused_scan_plain(groups), 3),
+                library_ms=None, **bound(*fused_cost(groups)),
+            ))
+            del groups
     for row in per_shape:
-        print(f"  {row['kernel']:12s} {str(row['shape']):16s} kernel {row['ms']:.4f} ms"
+        label = row["kernel"] + (f":{row['site']}" if "site" in row else "")
+        print(f"  {label:26s} {str(row['shape']):16s} kernel {row['ms']:.4f} ms"
+              f"  call {row['call_ms']:.4f} ms"
               f"  plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
               + (f"  library {row['library_ms']:.4f} ms" if row["library_ms"] else ""),
               flush=True)
@@ -354,6 +485,9 @@ def kernel_phase():
         "affine_scan": next(r for r in per_shape if r["kernel"] == "affine_scan" and r["shape"] == [64, 65536]),
         "dfa_scan": next(r for r in per_shape if r["kernel"] == "dfa_scan" and r["shape"] == [64, 65536]),
         "sort2": next(r for r in per_shape if r["kernel"] == "sort2" and r["shape"] == [256, 16384]),
+        # The main path's largest fused call: gopher_quality's 4 groups.
+        "fused_scan": next(r for r in per_shape if r["kernel"] == "fused_scan"
+                           and r["site"] == "gopher_quality" and r["shape"] == [64, 8192]),
     }
     return errs, rep, per_shape
 
@@ -385,12 +519,69 @@ def time_dup_walk():
 # --- main path ----------------------------------------------------------------
 
 
-def main_path(device: str, n_docs: int, work: str):
-    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+def device_run(config, inp: str, work: str, tag: str, device: str):
+    """One run of the port's ``run`` entry point over ``inp``; every kernel
+    launch counter and the dup-walk counters are set to 0 just before and
+    read just after."""
     from textblaster_tpu_torch.ops import scan, sort, stats
-    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
     from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
     from textblaster_tpu_torch.runner import run_pipeline
+
+    pipe = CompiledPipeline(config, device=device)
+    if device == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+    out = (os.path.join(work, f"{tag}_kept.parquet"), os.path.join(work, f"{tag}_excl.parquet"))
+    for d in (scan.LAUNCHES, sort.LAUNCHES, stats.DUP_WALK):
+        for k in d:
+            d[k] = 0
+    t0 = time.perf_counter()
+    res = run_pipeline(config, inp, *out, backend="device", pipeline=pipe)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    return {
+        "schedule": tag,
+        "received": res.received,
+        "kept": res.success,
+        "excluded": res.filtered,
+        "errors": res.errors,
+        "device_seconds": dev_s,
+        "device_docs_per_s": res.received / dev_s,
+        "launches": {**scan.LAUNCHES, **sort.LAUNCHES},
+        "pipeline_launches": dict(pipe.counters["launches"]),
+        "batches_by_bucket": {str(k): v for k, v in sorted(pipe.counters["batches_by_bucket"].items())},
+        "device_rows": pipe.counters["device_rows"],
+        "host_fallback": pipe.counters["host_fallback"],
+        "host_routed_dict_script": pipe.counters["host_routed_dict_script"],
+        "host_overflow": pipe.counters["host_overflow"],
+        "seconds": pipe.counters["seconds"],
+        "dup_walk": dict(stats.DUP_WALK),
+        "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20) if device == "cuda" else None,
+        "outputs": out,
+    }
+
+
+def _parity(run, host_kept, host_excl, ids=None):
+    """Share of the host oracle's decisions the run reproduced (restricted
+    to ``ids`` when the run saw only part of the corpus), and whether the
+    kept and excluded sets are equal."""
+    if ids is not None:
+        host_kept = {r for r in host_kept if r[0] in ids}
+        host_excl = {r for r in host_excl if r[0] in ids}
+    kept, excl = read_set(run["outputs"][0]), read_set(run["outputs"][1])
+    agree = len(kept & host_kept) + len(excl & host_excl)
+    equal = kept == host_kept and excl == host_excl
+    return agree / max(len(host_kept) + len(host_excl), 1), equal
+
+
+def main_path(device: str, n_docs: int, work: str, t_start: float):
+    """The fused schedule (this port's default) over the whole corpus, then
+    the staged schedule (``TEXTBLAST_FUSED=off``, set for that run only),
+    both held against one host-oracle run."""
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
 
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
@@ -400,58 +591,72 @@ def main_path(device: str, n_docs: int, work: str):
     n_chars = sum(len(r[1]) for r in rows)
     print(f"corpus: {len(rows)} documents, {n_chars} chars, "
           f"{time.perf_counter() - t0:.1f} s to make", flush=True)
-
     config = load_pipeline_config(CONFIG)
-    pipe = CompiledPipeline(config, device=device)
-    if device == "cuda":
-        import torch
 
-        torch.cuda.reset_peak_memory_stats()
-    dev_out = (os.path.join(work, "dev_kept.parquet"), os.path.join(work, "dev_excl.parquet"))
-    for d in (scan.LAUNCHES, sort.LAUNCHES, stats.DUP_WALK):
-        for k in d:
-            d[k] = 0
-    t0 = time.perf_counter()
-    res = run_pipeline(config, inp, *dev_out, backend="device", pipeline=pipe)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    dev_s = time.perf_counter() - t0
-    launches = {**scan.LAUNCHES, **sort.LAUNCHES}
+    # Warm-up, not measured: tables, the language model and the host
+    # executor load on first use, which would otherwise fall on the first
+    # schedule of the A/B.
+    warm = os.path.join(work, "corpus_warmup.parquet")
+    write_parquet(warm, rows[:200])
+    device_run(config, warm, work, "warmup", device)
+
+    fused = device_run(config, inp, work, "fused", device)
+
+    # The staged run takes the first STAGED_SUBSET documents instead when
+    # the whole corpus would bring the script past ~600 s (a second device
+    # run plus the host oracle, each about as long as the fused run).
+    staged_inp, staged_ids = inp, None
+    if time.perf_counter() - t_start + 2 * fused["device_seconds"] > 600:
+        sub = rows[:STAGED_SUBSET]
+        staged_inp = os.path.join(work, "corpus_staged.parquet")
+        write_parquet(staged_inp, sub)
+        staged_ids = {r[0] for r in sub}
+    prev = os.environ.get("TEXTBLAST_FUSED")
+    os.environ["TEXTBLAST_FUSED"] = "off"
+    try:
+        staged = device_run(config, staged_inp, work, "staged", device)
+    finally:
+        if prev is None:
+            del os.environ["TEXTBLAST_FUSED"]
+        else:
+            os.environ["TEXTBLAST_FUSED"] = prev
 
     t0 = time.perf_counter()
     host_kept, host_excl, host_received = host_oracle(inp, work)
     host_s = time.perf_counter() - t0
 
-    dev_kept, dev_excl = read_set(dev_out[0]), read_set(dev_out[1])
-    parity = dev_kept == host_kept and dev_excl == host_excl
-    decided = len(host_kept) + len(host_excl)
-    agree = len(dev_kept & host_kept) + len(dev_excl & host_excl)
+    fused["decision_parity"], fused_equal = _parity(fused, host_kept, host_excl)
+    staged["decision_parity"], staged_equal = _parity(staged, host_kept, host_excl, staged_ids)
     summary = {
         "documents": len(rows),
         "chars": n_chars,
-        "kept": res.success,
-        "excluded": res.filtered,
-        "errors": res.errors,
-        "device_seconds": dev_s,
-        "device_docs_per_s": len(rows) / dev_s,
+        "staged_documents": len(staged_ids) if staged_ids else len(rows),
         "host_oracle_seconds": host_s,
-        "decision_parity": agree / max(decided, 1),
-        "batches_by_bucket": {str(k): v for k, v in sorted(pipe.counters["batches_by_bucket"].items())},
-        "device_rows": pipe.counters["device_rows"],
-        "host_fallback": pipe.counters["host_fallback"],
-        "host_routed_dict_script": pipe.counters["host_routed_dict_script"],
-        "host_overflow": pipe.counters["host_overflow"],
-        "launches": launches,
-        "seconds": pipe.counters["seconds"],
-        "dup_walk": dict(stats.DUP_WALK),
-        "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20) if device == "cuda" else None,
+        "fused": fused,
+        "staged": staged,
     }
+    for run in (fused, staged):
+        print(f"main path, {run['schedule']} schedule: {run['received']} documents, "
+              f"{run['device_docs_per_s']:.2f} docs/s ({run['device_seconds']:.2f} s), "
+              f"parity {run['decision_parity']}, phase seconds {json.dumps(run['seconds'])}, "
+              f"dup walk {run['dup_walk']['seconds']:.2f} s, launches {run['launches']}",
+              flush=True)
     print("main path: " + json.dumps(summary), flush=True)
-    if res.received != host_received or not parity:
-        fail(f"device and host oracle outputs differ (parity {summary['decision_parity']})")
-    missing = [b for b in DEFAULT_BUCKETS if pipe.counters["batches_by_bucket"].get(b, 0) == 0]
+    if fused["received"] != host_received or not fused_equal:
+        fail(f"fused run and host oracle differ (parity {fused['decision_parity']})")
+    if not staged_equal:
+        fail(f"staged run and host oracle differ (parity {staged['decision_parity']})")
+    missing = [b for b in DEFAULT_BUCKETS if fused["batches_by_bucket"].get(str(b), 0) == 0]
     if missing:
         fail(f"buckets never dispatched: {missing}")
+    for k in ("fused_scan", "affine_scan", "dfa_scan", "sort2"):
+        if fused["launches"][k] <= 0:
+            fail(f"kernel {k} was never launched on the fused main path")
+    for k in ("affine_scan", "dfa_scan", "sort2"):
+        if staged["launches"][k] <= 0:
+            fail(f"kernel {k} was never launched on the staged main path")
+    if staged["launches"]["fused_scan"] != 0:
+        fail("the staged schedule launched fused_scan")
     return summary
 
 
@@ -485,24 +690,24 @@ def main() -> int:
     print(f"dup walk (torch loop): {walk}", flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
-    summary = main_path("cuda", N_DOCS, work)
-    for k, v in summary["launches"].items():
-        if v <= 0:
-            fail(f"kernel {k} was never launched on the main path")
+    summary = main_path("cuda", N_DOCS, work, t_start)
 
     sources = {"affine_scan": "textblaster_tpu_torch/csrc/scan.cu",
                "dfa_scan": "textblaster_tpu_torch/csrc/scan.cu",
-               "sort2": "textblaster_tpu_torch/csrc/sort.cu"}
+               "sort2": "textblaster_tpu_torch/csrc/sort.cu",
+               "fused_scan": "textblaster_tpu_torch/csrc/fused.cu"}
     replaces = {"affine_scan": "textblaster_tpu/ops/pallas_scan.py:244",
                 "dfa_scan": "textblaster_tpu/ops/pallas_scan.py:244",
-                "sort2": "textblaster_tpu/ops/pallas_sort.py:160"}
+                "sort2": "textblaster_tpu/ops/pallas_sort.py:160",
+                "fused_scan": "textblaster_tpu/ops/pallas_scan.py:435"}
     kernels = []
-    for k in ("affine_scan", "dfa_scan", "sort2"):
+    for k in ("affine_scan", "dfa_scan", "sort2", "fused_scan"):
         r = rep[k]
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
-            "launches": summary["launches"][k], "max_abs_err": errs[k],
-            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": summary["fused"]["launches"][k], "max_abs_err": errs[k],
+            "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
         })

@@ -79,3 +79,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         scan.dfa_compose_scan(x, 9)
     with pytest.raises(ValueError):
         sort.sort2(x.t(), x.t())  # not contiguous
+
+
+def _fused_groups(rng, shape, dev):
+    """Every group kind and emit mode within the kernel's limits: affine
+    k = 1, 3 and 5 (two units), add, dfa at 4, 5 and 8 states; 16 inputs,
+    13 outputs."""
+    m, a, b, c, d, v = (_full_range(rng, shape, dev) for _ in range(6))
+    return [
+        scan.affine_group(m, (a, b, c, d, v), emit="last"),
+        scan.affine_group(v, (a,)),
+        scan.affine_group(m, (b, c, d)),
+        scan.add_group((v,), emit="last"),
+        scan.dfa_group(_packed_maps(rng, shape, 4, dev), 4),
+        scan.dfa_group(_packed_maps(rng, shape, 5, dev), 5, emit="last"),
+        scan.dfa_group(_packed_maps(rng, shape, 8, dev), 8),
+    ]
+
+
+@pytest.mark.parametrize("shape", [(37, 1000), (64, 16384)])
+def test_fused_kernel_matches_plain(cuda, shape):
+    groups = _fused_groups(np.random.default_rng(shape[1]), shape, cuda)
+    before = scan.LAUNCHES["fused_scan"]
+    got = scan.fused_scan(groups)
+    want = scan.fused_scan_plain(groups)
+    assert scan.LAUNCHES["fused_scan"] == before + 1
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        assert all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w))
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # 9 groups
+        scan.fused_scan([scan.add_group((x,)) for _ in range(9)])
+    with pytest.raises(ValueError):  # 17 inputs
+        scan.fused_scan([scan.add_group((x,) * 8), scan.add_group((x,) * 9, emit="last")])
+    with pytest.raises(TypeError):
+        scan.fused_scan([scan.affine_group(x.long(), (x.long(),))])
+    with pytest.raises(ValueError):  # not contiguous
+        scan.fused_scan([scan.add_group((torch.zeros((8, 4), dtype=torch.int32, device=cuda).t(),))])
+    with pytest.raises(ValueError):
+        scan.fused_scan([scan.dfa_group(x, 9)])

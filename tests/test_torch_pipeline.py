@@ -2,8 +2,9 @@
 and the whole ``run``, on the CPU.
 
 Both sides get the same packed batches; every statistic is int32 (or bool)
-and must match exactly.  The whole-run check compares the kept and excluded
-Parquet files as id-keyed sets (id, text, metadata, reason): the port's
+and must match exactly.  The per-(bucket, phase) check runs under both
+schedules (fused and staged).  The whole-run check compares the kept and
+excluded Parquet files as id-keyed sets (id, text, metadata, reason): the port's
 ``run --device cpu`` against the JAX package's compiled pipeline pinned to
 the CPU, which in turn must equal the host oracle.
 """
@@ -89,8 +90,20 @@ def corpus():
     return make_corpus(100, seed=7)
 
 
-@pytest.mark.parametrize("bucket", BUCKETS)
-def test_stats_dict_matches_jax_per_bucket_phase(corpus, bucket):
+@pytest.mark.parametrize(
+    "bucket,schedule", [(512, "fused"), (512, "staged"), (2048, "staged")]
+)
+def test_stats_dict_matches_jax_per_bucket_phase(corpus, monkeypatch, bucket, schedule):
+    """Fused: the port's default against the JAX package's fused branches
+    (interpret mode, ``chain_scan`` off; at 512 only, as interpret mode
+    compiles slowly).  Staged: ``TEXTBLAST_FUSED=off`` on both sides."""
+    for var in ("TEXTBLAST_PALLAS", "TEXTBLAST_NO_PALLAS", "TEXTBLAST_FUSED"):
+        monkeypatch.delenv(var, raising=False)
+    if schedule == "fused":
+        monkeypatch.setenv("TEXTBLAST_PALLAS_INTERPRET", "1")
+        monkeypatch.setenv("TEXTBLAST_DEPFUSE", "off")
+    else:
+        monkeypatch.setenv("TEXTBLAST_FUSED", "off")
     jax_cfg = jax_load_config(CONFIG)
     port_cfg = load_pipeline_config(CONFIG)
     jp = JaxPipeline(jax_cfg, buckets=BUCKETS, batch_size=16)

@@ -101,3 +101,108 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     want = scan.affine_hash_scan_plain(_t(m), (_t(a),))[0]
     assert torch.equal(got, want)
     assert scan.LAUNCHES == before
+
+
+# --- fused multi-group scan ---------------------------------------------------
+
+
+@pytest.fixture
+def interp(monkeypatch):
+    """The JAX fused kernel in interpret mode (as tests/test_fused_scan.py
+    runs it); the port reads TEXTBLAST_FUSED too, so it is cleared."""
+    monkeypatch.delenv("TEXTBLAST_PALLAS", raising=False)
+    monkeypatch.delenv("TEXTBLAST_NO_PALLAS", raising=False)
+    monkeypatch.delenv("TEXTBLAST_FUSED", raising=False)
+    monkeypatch.setenv("TEXTBLAST_PALLAS_INTERPRET", "1")
+
+
+def _group_lists(rng, shape):
+    """name -> builder(module) of one group list over fixed numpy inputs;
+    the builder takes ``psc`` (JAX arrays) or ``scan`` (torch tensors)."""
+    m, a1, a2, a3, a4, v = (_full_range(rng, shape) for _ in range(6))
+    f6, f8 = _packed_maps(rng, shape, 6), _packed_maps(rng, shape, 8)
+
+    def lists(mod, conv):
+        m_, a1_, a2_, a3_, a4_, v_, f6_, f8_ = map(conv, (m, a1, a2, a3, a4, v, f6, f8))
+        return {
+            "affine_k1_to_k4": [
+                mod.affine_group(m_, (a1_,)),
+                mod.affine_group(m_, (a1_, a2_)),
+                mod.affine_group(m_, (a1_, a2_, a3_)),
+                mod.affine_group(v_, (a1_, a2_, a3_, a4_)),
+            ],
+            "add_scan_and_last": [
+                mod.add_group((v_, a1_)),
+                mod.add_group((v_, a1_, a2_), emit="last"),
+            ],
+            "dfa": [mod.dfa_group(f6_, 6), mod.dfa_group(f8_, 8, emit="last")],
+            # tests/test_fused_scan.py's mixed list.
+            "mixed": [
+                mod.affine_group(m_, (a1_, a2_)),
+                mod.add_group((v_,)),
+                mod.dfa_group(f6_, 6),
+                mod.add_group((v_, a1_), emit="last"),
+            ],
+        }
+
+    return lists
+
+
+LIST_NAMES = ["affine_k1_to_k4", "add_scan_and_last", "dfa", "mixed"]
+
+
+def _assert_same(got, want, shape):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for gs, ws in zip(g, w):
+            ws = np.asarray(ws)
+            assert gs.dtype == torch.int32 and tuple(gs.shape) == ws.shape
+            assert ws.shape in ((shape[0], shape[1]), (shape[0], 1))
+            np.testing.assert_array_equal(gs.numpy(), ws)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (16, 512), (8, 1280)])
+def test_fused_plain_matches_pallas_interpret(interp, shape):
+    """Every list's groups in one interpret-mode kernel (the JAX kernel has
+    no group limit; the groups are independent, so this checks each)."""
+    lists = _group_lists(np.random.default_rng(shape[1]), shape)
+    assert psc.fused_scan_ok(*shape) and scan.fused_scan_ok(*shape)
+    want = psc.fused_scan([g for n in LIST_NAMES for g in lists(psc, jnp.asarray)[n]])
+    got = scan.fused_scan_plain([g for n in LIST_NAMES for g in lists(scan, _t)[n]])
+    _assert_same(got, want, shape)
+
+
+@pytest.mark.parametrize("name", LIST_NAMES)
+def test_fused_odd_shape_matches_lax(name):
+    """[5, 300] (no TPU tiling) against each group's own lax scan."""
+    shape = (5, 300)
+    lists = _group_lists(np.random.default_rng(len(name)), shape)
+    groups = lists(psc, jnp.asarray)[name]
+    want = []
+    for g in groups:
+        op, identities, _, emit_idx, emit_last = psc._group_spec(g)
+        scanned = _lax_scan(op, tuple(g["xs"]))
+        want.append(tuple(scanned[i][:, -1:] if emit_last else scanned[i] for i in emit_idx))
+    _assert_same(scan.fused_scan(lists(scan, _t)[name]), want, shape)
+
+
+def test_fused_gate_and_cpu_wrapper(monkeypatch):
+    """The gate keeps the JAX lane cap and drops the TPU tiling rules;
+    ``TEXTBLAST_FUSED=off`` selects the staged schedule; the CPU wrapper
+    runs the plain version and counts no launch."""
+    monkeypatch.delenv("TEXTBLAST_FUSED", raising=False)
+    assert scan.fused_scan_ok(37, 1000) and scan.fused_scan_ok(64, 16384)
+    assert not scan.fused_scan_ok(64, 32768)
+    monkeypatch.setenv("TEXTBLAST_FUSED", "off")
+    assert not scan.fused_scan_ok(64, 512)
+    before = dict(scan.LAUNCHES)
+    rng = np.random.default_rng(3)
+    m, a = _t(_full_range(rng, (3, 9))), _t(_full_range(rng, (3, 9)))
+    groups = [scan.affine_group(m, (a,)), scan.add_group((a,), emit="last")]
+    got, want = scan.fused_scan(groups), scan.fused_scan_plain(groups)
+    assert all(torch.equal(g, w) for gg, ww in zip(got, want) for g, w in zip(gg, ww))
+    assert got[1][0].shape == (3, 1)
+    assert scan.LAUNCHES == before
+    with pytest.raises(ValueError):
+        scan.fused_scan([{"kind": "segmax", "xs": (m, a)}])

@@ -4,8 +4,11 @@
 n-gram rarity gate fired and not fired), ``fineweb_stats``,
 ``sentence_counts`` and ``c4_stage`` (both segmentation modes) on an edge
 corpus — CJK, astral, empty and maximum-length rows, repeated lines and
-``[1]`` / ``[2, 3]`` citations — in both table forms.  Every value is an
-int32 or bool array and must match exactly.
+``[1]`` / ``[2, 3]`` citations — in both table forms.  The functions with a
+fused branch run under both schedules (the ``schedule`` fixture): fused,
+against the JAX package's interpret-mode fused kernel under
+``TEXTBLAST_DEPFUSE=off``, and staged, against its staged branch.  Every
+value is an int32 or bool array and must match exactly.
 """
 
 import jax
@@ -67,9 +70,22 @@ def _eq_dict(got, want):
         _eq(got[k], want[k], k)
 
 
-@pytest.fixture(params=["scatter", "sort"])
-def table_impl(request, monkeypatch):
-    monkeypatch.setenv("TEXTBLAST_TABLE_IMPL", request.param)
+def _set_schedule(monkeypatch, sched):
+    """Both packages read the switches.  Fused: the port's default, and the
+    JAX package's fused branch, its kernel in interpret mode, with
+    ``chain_scan`` off.  Staged: ``TEXTBLAST_FUSED=off`` on both sides."""
+    for var in ("TEXTBLAST_PALLAS", "TEXTBLAST_NO_PALLAS", "TEXTBLAST_FUSED"):
+        monkeypatch.delenv(var, raising=False)
+    if sched == "fused":
+        monkeypatch.setenv("TEXTBLAST_PALLAS_INTERPRET", "1")
+        monkeypatch.setenv("TEXTBLAST_DEPFUSE", "off")
+    else:
+        monkeypatch.setenv("TEXTBLAST_FUSED", "off")
+
+
+@pytest.fixture(params=["fused", "staged"])
+def schedule(request, monkeypatch):
+    _set_schedule(monkeypatch, request.param)
     return request.param
 
 
@@ -84,15 +100,36 @@ def _jit(fn):
     return jax.jit(lambda *a: fn(*a))
 
 
-def test_structure():
+@pytest.mark.parametrize("with_hashes", [True, False])
+def test_structure(schedule, with_hashes):
     (jc, jl), (tc, tl) = _both(DIRTY)
-    want = _jit(lambda c, n: js.structure(c, n, with_hashes=True))(jc, jl)
-    got = ts.structure(tc, tl, with_hashes=True)
+    want = _jit(lambda c, n: js.structure(c, n, with_hashes=with_hashes))(jc, jl)
+    got = ts.structure(tc, tl, with_hashes=with_hashes)
     for name in ts.TextStructure._fields:
         _eq(getattr(got, name), getattr(want, name), name)
 
 
-def test_gopher_quality_stats():
+def test_structure_unpacked_fused_branch(schedule):
+    """At 16384 lanes (above the packed-field limit of 8192) the fused
+    branch takes the four-accumulator group; 8 short rows."""
+    length = 16384
+    cps = np.zeros((8, length), np.int32)
+    lens = np.zeros(8, np.int32)
+    for i, t in enumerate(DIRTY):
+        cp = [ord(c) for c in t]
+        cps[i, : len(cp)] = cp
+        lens[i] = len(cp)
+    cps[5, :length] = [ord(c) for c in ("ord " * 4096)]  # a maximum-length row
+    lens[5] = length
+    want = _jit(lambda c, n: js.structure(c, n, with_hashes=True))(
+        jnp.asarray(cps), jnp.asarray(lens)
+    )
+    got = ts.structure(torch.from_numpy(cps), torch.from_numpy(lens), with_hashes=True)
+    for name in ts.TextStructure._fields:
+        _eq(getattr(got, name), getattr(want, name), name)
+
+
+def test_gopher_quality_stats(schedule):
     (jc, jl), (tc, tl) = _both(DIRTY)
     hashes = tuple(sorted({js.hash_string(w) for w in DANISH_STOP_WORDS}))
     want = _jit(lambda c, n: js.gopher_quality_stats(js.structure(c, n), hashes))(jc, jl)
@@ -117,7 +154,12 @@ def test_gopher_rep_stats(monkeypatch, impl, texts, fires):
     assert bool(got["dup_5"].any()) == fires
 
 
-def test_fineweb_stats(table_impl):
+@pytest.mark.parametrize(
+    "impl,sched", [("scatter", "fused"), ("scatter", "staged"), ("sort", "staged")]
+)
+def test_fineweb_stats(monkeypatch, impl, sched):
+    monkeypatch.setenv("TEXTBLAST_TABLE_IMPL", impl)
+    _set_schedule(monkeypatch, sched)
     (jc, jl), (tc, tl) = _both(DIRTY)
     stop = tuple(sorted(".!?\"'"))
 
@@ -134,10 +176,17 @@ def test_sentence_counts():
 
 
 @pytest.mark.parametrize(
-    "impl,split_paragraph", [("scatter", True), ("sort", True), ("scatter", False)]
+    "impl,split_paragraph,sched",
+    [
+        ("scatter", True, "fused"),
+        ("scatter", True, "staged"),
+        ("sort", True, "staged"),
+        ("scatter", False, "staged"),
+    ],
 )
-def test_c4_stage(monkeypatch, impl, split_paragraph):
+def test_c4_stage(monkeypatch, impl, split_paragraph, sched):
     monkeypatch.setenv("TEXTBLAST_TABLE_IMPL", impl)
+    _set_schedule(monkeypatch, sched)
     (jc, jl), (tc, tl) = _both(DIRTY)
     kw = dict(
         split_paragraph=split_paragraph,

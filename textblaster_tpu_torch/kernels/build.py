@@ -30,7 +30,7 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 #: Library name -> source file under csrc/.
-SOURCES: Dict[str, str] = {"scan": "scan.cu", "sort": "sort.cu"}
+SOURCES: Dict[str, str] = {"fused": "fused.cu", "scan": "scan.cu", "sort": "sort.cu"}
 
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -127,6 +127,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "sort":
         lib.tb_sort2.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.tb_sort2.restype = i
+    elif name == "fused":
+        ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+        lib.tb_fused_scan.argtypes = [i, ip, ip, ip, ip, pp, i, pp, i, i, i, p]
+        lib.tb_fused_scan.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,11 +9,18 @@ overflow a kernel table bound, that are longer than the largest bucket, or
 that contain dictionary-segmented scripts are decided by the host oracle
 (counted in :attr:`CompiledPipeline.counters`).
 
-This slice runs the JAX package's *staged* schedule (``TEXTBLAST_FUSED=off``),
-serially: one batch at a time, survivors repacked between phases.  Uploads
-are int32.  Not ported yet: C4BadWords on the device (it runs as a host
-step), the uint16 wire, the K-deep overlap window, the retry/split/host
-ladder, meshes and warmup.
+The statistic functions run one of two of the JAX package's schedules
+(:mod:`.stats`): the *fused* schedule by default, which evaluates the
+independent scans of four functions in one ``fused_scan`` launch at
+buckets up to 16384 (the JAX package under ``TEXTBLAST_DEPFUSE=off``), or
+the *staged* schedule under ``TEXTBLAST_FUSED=off``.  Both give the same
+statistics.  :attr:`CompiledPipeline.counters` ``["launches"]`` counts the
+hand-written kernels' launches by kernel.
+
+Batches run serially: one at a time, survivors repacked between phases.
+Uploads are int32.  Not ported yet: ``chain_scan``, C4BadWords on the
+device (it runs as a host step), the uint16 wire, the K-deep overlap
+window, the retry/split/host ladder, meshes and warmup.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..orchestration import execute_processing_pipeline
 from ..pipeline_builder import build_pipeline_from_config
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
+from . import scan, sort
 from .packing import DEFAULT_BUCKETS, PACK_MARGIN, PackedBatch, iter_packed_batches
 from .stats import (
     C4Params,
@@ -176,9 +184,16 @@ class _StepEval:
         self.c4_rewrite_identity = None
 
 
+def _launch_counts() -> Dict[str, int]:
+    return {**scan.LAUNCHES, **sort.LAUNCHES}
+
+
 def _new_counters() -> Dict[str, object]:
     return {
         "batches_by_bucket": {},  # (bucket) -> device batches, all phases
+        # Hand-written kernel launches by kernel (0 on the CPU, where the
+        # wrappers run their plain versions).
+        "launches": {k: 0 for k in _launch_counts()},
         "device_rows": 0,  # real documents sent to the device, all phases
         "host_fallback": 0,  # over-length, dictionary-script and overflow rows
         "host_routed_dict_script": 0,
@@ -381,7 +396,12 @@ class CompiledPipeline:
         buckets = self.counters["batches_by_bucket"]
         buckets[batch.max_len] = buckets.get(batch.max_len, 0) + 1
         self.counters["device_rows"] += len(batch.docs)
-        return fn(cps, lengths)
+        before = _launch_counts()
+        stats = fn(cps, lengths)
+        launches = self.counters["launches"]
+        for k, n in _launch_counts().items():
+            launches[k] += n - before[k]
+        return stats
 
     @staticmethod
     def fetch(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -1,13 +1,23 @@
-"""Row-wise inclusive scans: the affine-hash scan and the DFA-composition scan.
+"""Row-wise inclusive scans: the per-scan kernels and the fused multi-group scan.
 
-The port's counterpart of the per-scan half of the JAX package's
-``textblaster_tpu/ops/pallas_scan.py`` (``affine_hash_scan``,
-``dfa_compose_scan``; their Pallas kernel is ``_pallas_scan_tuple``).  On a
-CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/scan.cu``) or raises; on a CPU tensor it runs the plain PyTorch
-version beside it, which follows the Hillis–Steele shift schedule of the
-JAX ops (``_affine_op``, ``_dfa_op``).  Every schedule gives the same int32
-result by integer associativity, so the two agree bit for bit.
+The port's counterpart of the JAX package's
+``textblaster_tpu/ops/pallas_scan.py`` without ``chain_scan``:
+
+* the per-scan half, ``affine_hash_scan`` and ``dfa_compose_scan`` (their
+  Pallas kernel is ``_pallas_scan_tuple``; here ``csrc/scan.cu``);
+* the fused half, :func:`fused_scan` over a list of independent groups
+  built by :func:`affine_group`, :func:`add_group` and :func:`dfa_group`
+  (its Pallas kernel is ``_fused_call``; here ``csrc/fused.cu``).
+
+On a CUDA tensor each wrapper launches its hand-written kernel or raises;
+on a CPU tensor it runs the plain PyTorch version beside it, which follows
+the Hillis–Steele shift schedule of the JAX ops (``_affine_op``,
+``_add_op``, ``_dfa_op``).  Every schedule gives the same int32 result by
+integer associativity, so the two agree bit for bit.
+
+``TEXTBLAST_FUSED=off`` selects the staged *schedule* (callers gate on
+:func:`fused_scan_ok`), as in the JAX package; it never sends a CUDA
+tensor to a plain version.
 
 ``LAUNCHES`` counts kernel launches per kernel; only a launch on the card
 adds to it.
@@ -15,7 +25,9 @@ adds to it.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import ctypes
+import os
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -23,15 +35,30 @@ from .device import shift_scan_tuple
 
 __all__ = [
     "LAUNCHES",
+    "add_group",
+    "affine_group",
     "affine_hash_scan",
     "affine_hash_scan_plain",
     "dfa_compose_scan",
     "dfa_compose_scan_plain",
+    "dfa_group",
     "dfa_ident",
+    "fused_enabled",
+    "fused_scan",
+    "fused_scan_ok",
+    "fused_scan_plain",
 ]
 
 #: Kernel launches on the card, by kernel name.
-LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0}
+LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0, "fused_scan": 0}
+
+#: The JAX fused kernel's lane cap (``pallas_scan._FUSED_MAX_LANES``), kept
+#: so that every bucket takes the JAX package's schedule.
+FUSED_MAX_LANES = 16384
+
+#: Limits of ``csrc/fused.cu``'s by-value parameter block.
+FUSED_MAX_GROUPS = 8
+FUSED_MAX_STREAMS = 16
 
 
 def _affine_op(xs, ys):
@@ -39,6 +66,11 @@ def _affine_op(xs, ys):
     mx, axs = xs[0], xs[1:]
     my, ays = ys[0], ys[1:]
     return (mx * my,) + tuple(ay + my * ax for ax, ay in zip(axs, ays))
+
+
+def _add_op(xs, ys):
+    # Elementwise running sums (pallas_scan._add_op).
+    return tuple(x + y for x, y in zip(xs, ys))
 
 
 def _dfa_op(n_states: int):
@@ -159,3 +191,164 @@ def dfa_compose_scan(fns: torch.Tensor, n_states: int) -> torch.Tensor:
     check(err, "dfa_compose_scan")
     LAUNCHES["dfa_scan"] += 1
     return out
+
+
+# --- fused multi-group scan ---------------------------------------------------
+#
+# A group is one independent associative scan over one or more int32 [B, L]
+# streams.  fused_scan() evaluates a list of groups in one kernel launch:
+# each group emits its scanned streams ("scan") or only its final [B, 1]
+# carry ("last", a per-row total that never widens to [B, L]).
+
+
+def affine_group(
+    m: torch.Tensor, accs: Sequence[torch.Tensor], emit: str = "scan"
+) -> dict:
+    """Shared-multiplier affine-hash group (the fused twin of
+    :func:`affine_hash_scan`); emits only the accumulator streams."""
+    return {"kind": "affine", "xs": (m,) + tuple(accs), "emit": emit}
+
+
+def add_group(vals: Sequence[torch.Tensor], emit: str = "scan") -> dict:
+    """Running-sum group; ``emit="last"`` yields ``[B, 1]`` row totals."""
+    return {"kind": "add", "xs": tuple(vals), "emit": emit}
+
+
+def dfa_group(fns: torch.Tensor, n_states: int, emit: str = "scan") -> dict:
+    """Nibble-packed DFA map composition group (the fused twin of
+    :func:`dfa_compose_scan`)."""
+    return {"kind": "dfa", "xs": (fns,), "emit": emit, "n_states": n_states}
+
+
+def _group_spec(g: dict):
+    """``(op, identities, n_operands, emitted stream indices, emit_last)``
+    of one group (``pallas_scan._group_spec`` for the kinds the fused scan
+    takes; segmax and copy groups belong to ``chain_scan``, not ported)."""
+    kind = g["kind"]
+    n_in = len(g["xs"])
+    emit = g.get("emit", "scan")
+    if emit not in ("scan", "last"):
+        raise ValueError(f"unknown emit mode {emit!r}")
+    emit_last = emit == "last"
+    if kind == "affine":
+        return _affine_op, (1,) + (0,) * (n_in - 1), n_in, tuple(range(1, n_in)), emit_last
+    if kind == "add":
+        return _add_op, (0,) * n_in, n_in, tuple(range(n_in)), emit_last
+    if kind == "dfa":
+        n_states = g["n_states"]
+        return _dfa_op(n_states), (dfa_ident(n_states),), 1, (0,), emit_last
+    if kind in ("segmax", "copy"):
+        raise ValueError(f"{kind} groups belong to chain_scan, which is not ported")
+    raise ValueError(f"unknown fused group kind {kind!r}")
+
+
+def _regroup(groups: Sequence[dict], flat: Sequence[torch.Tensor]):
+    """Split a flat emitted-stream tuple back into per-group tuples."""
+    out, i = [], 0
+    for g in groups:
+        k = len(_group_spec(g)[3])
+        out.append(tuple(flat[i : i + k]))
+        i += k
+    return out
+
+
+def fused_enabled() -> bool:
+    """``TEXTBLAST_FUSED=off`` (or ``0``/``false``) selects the staged
+    schedule; re-read per call so tests and benches can toggle it."""
+    return os.environ.get("TEXTBLAST_FUSED", "").lower() not in ("off", "0", "false")
+
+
+def fused_scan_ok(b: int, length: int) -> bool:
+    """Whether a caller takes the fused schedule for a ``[b, length]``
+    batch: the ``TEXTBLAST_FUSED`` switch and the JAX package's lane cap
+    (16384), so each bucket takes the JAX schedule: fused at
+    512/2048/8192, staged at 32768/65536.  The TPU tiling rules
+    (``b % 8``, ``length % 128``) are dropped: the CUDA kernel masks
+    ragged edges.
+
+    The port has no ``chain_scan`` yet, so it runs the JAX package's
+    schedule under ``TEXTBLAST_DEPFUSE=off`` whatever that variable says."""
+    del b  # any row count works
+    return fused_enabled() and length <= FUSED_MAX_LANES
+
+
+def fused_scan_plain(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
+    """Plain PyTorch fused scan: each group's op on the shift schedule,
+    the last column taken for ``emit="last"``."""
+    out = []
+    for g in groups:
+        op, identities, _, emit_idx, emit_last = _group_spec(g)
+        xs = tuple(x.to(torch.int32) for x in g["xs"])
+        scanned = shift_scan_tuple(op, identities, xs)
+        if emit_last and xs[0].shape[1] == 0:  # an empty row's carry is the identity
+            scanned = tuple(torch.full((x.shape[0], 1), v, dtype=torch.int32, device=x.device)
+                            for x, v in zip(xs, identities))
+        elif emit_last:
+            scanned = tuple(x[:, -1:] for x in scanned)
+        out.append(tuple(scanned[i] for i in emit_idx))
+    return out
+
+
+_KINDS = {"affine": 0, "add": 1, "dfa": 2}
+
+
+def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
+    """Evaluate independent scan groups in ONE kernel launch; returns one
+    tuple of int32 streams per group: ``[B, L]`` scans for
+    ``emit="scan"``, ``[B, 1]`` final carries for ``emit="last"``.
+
+    Every operand is a contiguous int32 ``[B, L]`` tensor on one device;
+    at most 8 groups and 16 input and 16 output streams; DFA groups take
+    1..8 states.  Callers gate on :func:`fused_scan_ok` first."""
+    groups = list(groups)
+    if not groups:
+        raise ValueError("fused_scan: no groups")
+    dev = groups[0]["xs"][0].device
+    if dev.type == "cpu":
+        return fused_scan_plain(groups)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_scan: unsupported device {dev}")
+    specs = [_group_spec(g) for g in groups]
+    xs = tuple(x for g in groups for x in g["xs"])
+    n_out = sum(len(s[3]) for s in specs)
+    if len(groups) > FUSED_MAX_GROUPS:
+        raise ValueError(f"fused_scan: {len(groups)} groups, the kernel takes {FUSED_MAX_GROUPS}")
+    if len(xs) > FUSED_MAX_STREAMS or n_out > FUSED_MAX_STREAMS:
+        raise ValueError(
+            f"fused_scan: {len(xs)} inputs / {n_out} outputs, the kernel takes "
+            f"{FUSED_MAX_STREAMS} of each"
+        )
+    for g in groups:
+        if g["kind"] == "affine" and len(g["xs"]) < 2:
+            raise ValueError("fused_scan: an affine group needs a multiplier and an accumulator")
+        if g["kind"] == "dfa" and not 1 <= g["n_states"] <= 8:
+            raise ValueError("fused_scan: the kernel takes 1..8 DFA states")
+    _check("fused_scan", xs)
+    from ..kernels.build import check, load
+
+    rows, length = xs[0].shape
+    outs = []
+    for _, _, _, emit_idx, emit_last in specs:
+        shape = (rows, 1) if emit_last else (rows, length)
+        outs.extend(torch.empty(shape, dtype=torch.int32, device=dev) for _ in emit_idx)
+    if rows == 0:
+        return _regroup(groups, outs)
+
+    def ints(vals):
+        return (ctypes.c_int * len(vals))(*vals)
+
+    lib = load("fused")
+    kinds = ints([_KINDS[g["kind"]] for g in groups])
+    n_in = ints([len(g["xs"]) for g in groups])
+    last = ints([int(s[4]) for s in specs])
+    n_states = ints([g.get("n_states", 0) for g in groups])
+    in_ptrs = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
+    out_ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    with torch.cuda.device(dev):
+        err = lib.tb_fused_scan(
+            len(groups), kinds, n_in, last, n_states,
+            in_ptrs, len(xs), out_ptrs, len(outs), rows, length, _stream(xs[0]),
+        )
+    check(err, "fused_scan")
+    LAUNCHES["fused_scan"] += 1
+    return _regroup(groups, outs)

@@ -1,19 +1,30 @@
 """Per-filter statistic functions over packed codepoint batches.
 
-The port's counterpart of ``textblaster_tpu/ops/stats.py``, restricted to
-its *staged* schedule: the branches the JAX package takes when
-``chain_scan_ok`` and ``fused_scan_ok`` are false (``TEXTBLAST_FUSED=off``).
+The port's counterpart of ``textblaster_tpu/ops/stats.py`` under two of
+the JAX package's schedules (``chain_scan`` is not ported, so the branches
+taken when ``chain_scan_ok`` is false):
+
+* **fused** (the default): where ``fused_scan_ok`` holds (buckets up to
+  16384), ``structure``, ``gopher_quality_stats``, ``fineweb_stats`` and
+  ``c4_stage``'s split-paragraph trim evaluate their independent scans as
+  groups of one :func:`~.scan.fused_scan` launch (``csrc/fused.cu``), as
+  the JAX package does under ``TEXTBLAST_DEPFUSE=off``;
+* **staged** (``TEXTBLAST_FUSED=off``, and every bucket above 16384): one
+  scan at a time.
+
 Each function maps ``(cps [B, L], lengths [B])`` to per-document integer
 statistics; ratios, thresholds and reason strings are computed on the host
-in float64 from these integers (:mod:`.pipeline`).
+in float64 from these integers (:mod:`.pipeline`).  Both schedules give the
+same integers by integer associativity.
 
-Two hand-written CUDA kernels carry this path on the card: the affine scan
-behind every segmented polynomial hash (:func:`_poly_hash_many`) and the
-bitonic ``sort2`` behind every duplicate table (:func:`_sort_runs_many`).
-The segmented add/or/max scans stay plain PyTorch, as they are lax scans in
-the JAX package.  The JAX package's two ``lax.cond`` gates (the n-gram
-rarity gate and the citation gate) and the pattern-candidate gate become
-host ``if``s: one device-to-host sync each per batch.
+Beside the fused kernel, two hand-written CUDA kernels carry this path on
+the card: the affine scan behind every staged segmented polynomial hash
+(:func:`_poly_hash_many`) and the bitonic ``sort2`` behind every duplicate
+table (:func:`_sort_runs_many`).  The staged segmented add/or/max scans
+stay plain PyTorch, as they are lax scans in the JAX package.  The JAX
+package's two ``lax.cond`` gates (the n-gram rarity gate and the citation
+gate) and the pattern-candidate gate become host ``if``s: one
+device-to-host sync each per batch.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ from .device import (
     word_mask,
 )
 from .dfa import citation_spans, dfa_states
-from .scan import affine_hash_scan
+from .scan import add_group, affine_group, affine_hash_scan, fused_scan, fused_scan_ok
 from .sort import sort2
 
 __all__ = [
@@ -135,6 +146,40 @@ def _poly_hash(
     cps: torch.Tensor, in_seg: torch.Tensor, seg_start: torch.Tensor, mul: int = 31
 ) -> torch.Tensor:
     return _poly_hash_many((cps,), in_seg, seg_start, mul=mul)[0]
+
+
+# --- fused-scan group builders -----------------------------------------------
+# Twins of the staged scans above as fused_scan groups (stats.py:166-193 of
+# the JAX package), each re-stating the staged recurrence exactly: a
+# segmented sum is the affine recurrence h = m*h_prev + v with m = 0 at
+# segment resets and 1 elsewhere; the segmented polynomial hash is the same
+# recurrence with m = mul inside segments.  Callers gate on fused_scan_ok.
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_I32).contiguous()
+
+
+def _seg_add_group(values: Tuple[torch.Tensor, ...], reset: torch.Tensor) -> dict:
+    """Fused-group twin of ``seg_scan_add`` over one shared ``reset``."""
+    return affine_group(_i32(torch.where(reset, 0, 1)), tuple(_i32(v) for v in values))
+
+
+def _poly_hash_group(
+    values: Tuple[torch.Tensor, ...],
+    in_seg: torch.Tensor,
+    seg_start: torch.Tensor,
+    mul: int = 31,
+) -> dict:
+    """Fused-group twin of :func:`_poly_hash_many` (same operands)."""
+    m = torch.where(seg_start, 0, torch.where(in_seg, mul, 1))
+    return affine_group(_i32(m), tuple(_i32(torch.where(in_seg, v, 0)) for v in values))
+
+
+def _sum_group(values: Tuple[torch.Tensor, ...]) -> dict:
+    """Fused-group twin of an int32 row sum per stream: an add scan that
+    emits only its ``[B, 1]`` final carry."""
+    return add_group(tuple(_i32(v) for v in values), emit="last")
 
 
 def _scatter(values, idx, active, m, fill=0, op="set"):
@@ -249,27 +294,58 @@ def structure(
     nonpunct = torch.where(in_unit, (~punct).to(_I32), 0).to(_I32)
     alpha = torch.where(in_unit, ((cls & ALPHA) != 0).to(_I32), 0).to(_I32)
 
-    if length <= 8192:
-        # Two packed add-scans instead of four: within a unit, chars <= 8192
-        # and UTF-8 bytes <= 4*8192 (below bit 17), so len<<17|bytes and
-        # nonpunct<<16|alpha add without cross-field carries.
-        packed_a = seg_scan_add(ones * (1 << 17) + widths, unit_start)
-        packed_b = seg_scan_add(nonpunct * (1 << 16) + alpha, unit_start)
-        unit_len = packed_a >> 17
-        unit_bytes = packed_a & ((1 << 17) - 1)
-        unit_valid = (packed_b >> 16) > 0
-        unit_alpha = (packed_b & ((1 << 16) - 1)) > 0
+    if fused_scan_ok(*cps.shape):
+        # One launch for every per-unit scan: the aggregates and (when asked)
+        # both hash streams.  The packed fields below hold only at
+        # length <= 8192; a longer fused bucket takes the unpacked
+        # four-accumulator group.
+        if length <= 8192:
+            groups = [
+                _seg_add_group(
+                    (ones * (1 << 17) + widths, nonpunct * (1 << 16) + alpha), unit_start
+                )
+            ]
+        else:
+            groups = [_seg_add_group((ones, widths, nonpunct, alpha), unit_start)]
+        if with_hashes:
+            groups.append(_poly_hash_group((cps, lowered(cps)), in_unit, unit_start))
+        res = fused_scan(groups)
+        if length <= 8192:
+            packed_a, packed_b = res[0]
+            unit_len = packed_a >> 17
+            unit_bytes = packed_a & ((1 << 17) - 1)
+            unit_valid = (packed_b >> 16) > 0
+            unit_alpha = (packed_b & ((1 << 16) - 1)) > 0
+        else:
+            # Sums of {0,1} streams: "> 0" on a segmented SUM equals the
+            # staged segmented OR bit for bit.
+            unit_len, unit_bytes, u_np, u_al = res[0]
+            unit_valid = u_np > 0
+            unit_alpha = u_al > 0
+        unit_hash, unit_lhash = res[1] if with_hashes else (None, None)
     else:
-        unit_len = seg_scan_add(ones, unit_start)
-        unit_bytes = seg_scan_add(widths, unit_start)
-        unit_valid = seg_scan_or(nonpunct, unit_start) > 0
-        unit_alpha = seg_scan_or(alpha, unit_start) > 0
+        if length <= 8192:
+            # Two packed add-scans instead of four: within a unit, chars
+            # <= 8192 and UTF-8 bytes <= 4*8192 (below bit 17), so
+            # len<<17|bytes and nonpunct<<16|alpha add without cross-field
+            # carries.
+            packed_a = seg_scan_add(ones * (1 << 17) + widths, unit_start)
+            packed_b = seg_scan_add(nonpunct * (1 << 16) + alpha, unit_start)
+            unit_len = packed_a >> 17
+            unit_bytes = packed_a & ((1 << 17) - 1)
+            unit_valid = (packed_b >> 16) > 0
+            unit_alpha = (packed_b & ((1 << 16) - 1)) > 0
+        else:
+            unit_len = seg_scan_add(ones, unit_start)
+            unit_bytes = seg_scan_add(widths, unit_start)
+            unit_valid = seg_scan_or(nonpunct, unit_start) > 0
+            unit_alpha = seg_scan_or(alpha, unit_start) > 0
 
-    if with_hashes:
-        low = lowered(cps)
-        unit_hash, unit_lhash = _poly_hash_many((cps, low), in_unit, unit_start)
-    else:
-        unit_hash = unit_lhash = None
+        if with_hashes:
+            low = lowered(cps)
+            unit_hash, unit_lhash = _poly_hash_many((cps, low), in_unit, unit_start)
+        else:
+            unit_hash = unit_lhash = None
 
     valid_end = unit_end & unit_valid
     word_idx = torch.cumsum(valid_end.to(_I32), dim=1, dtype=_I32) - 1
@@ -487,18 +563,54 @@ def gopher_quality_stats(
     ws = (cls & WS) != 0
     nonws = li.content & ~ws
 
-    dot_run = seg_scan_add(is_dot.to(_I32), dot_start)
-    leader = _first_nonws_in_line(nonws, li, mask)
-    last_nonws = _last_nonws_in_line(nonws, li, mask)
-    hash_count = _sum32((cps == ord("#")) & mask)
-    ellipsis_uni = _sum32((cps == 0x2026) & mask)
-    sum_len = _sum32(torch.where(valid_end, st.unit_len, 0))
-    alpha_words = _sum32(valid_end & st.unit_alpha)
     if stop_word_hashes:
         sw = np.sort(np.array(stop_word_hashes, dtype=np.int32))
-        stop_words = _sum32(valid_end & isin_sorted(st.unit_lhash, sw))
+        is_stop = isin_sorted(st.unit_lhash, sw)
     else:
-        stop_words = torch.zeros_like(n_words)
+        is_stop = None
+
+    if fused_scan_ok(*cps.shape):
+        # One launch for the three independent scans (dot runs, first- and
+        # last-non-ws-in-line counters) and every row total that does not
+        # depend on a scan output, the totals as [B, 1] final carries.
+        totals = [
+            (cps == ord("#")) & mask,
+            (cps == 0x2026) & mask,
+            torch.where(valid_end, st.unit_len, 0),
+            valid_end & st.unit_alpha,
+        ]
+        if is_stop is not None:
+            totals.append(valid_end & is_stop)
+        r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
+        res = fused_scan(
+            [
+                _seg_add_group((is_dot,), dot_start),
+                _seg_add_group((nonws,), _line_reset(li, mask)),
+                _seg_add_group((rev(nonws),), r_reset),
+                _sum_group(tuple(totals)),
+            ]
+        )
+        (dot_run,) = res[0]
+        leader = nonws & (res[1][0] == 1)
+        last_nonws = rev(rev(nonws) & (res[2][0] == 1))
+        t = res[3]
+        hash_count = t[0][:, 0]
+        ellipsis_uni = t[1][:, 0]
+        sum_len = t[2][:, 0]
+        alpha_words = t[3][:, 0]
+        stop_words = t[4][:, 0] if is_stop is not None else torch.zeros_like(n_words)
+    else:
+        dot_run = seg_scan_add(is_dot.to(_I32), dot_start)
+        leader = _first_nonws_in_line(nonws, li, mask)
+        last_nonws = _last_nonws_in_line(nonws, li, mask)
+        hash_count = _sum32((cps == ord("#")) & mask)
+        ellipsis_uni = _sum32((cps == 0x2026) & mask)
+        sum_len = _sum32(torch.where(valid_end, st.unit_len, 0))
+        alpha_words = _sum32(valid_end & st.unit_alpha)
+        if is_stop is not None:
+            stop_words = _sum32(valid_end & is_stop)
+        else:
+            stop_words = torch.zeros_like(n_words)
 
     dot_end = is_dot & ~_shift_l(is_dot, False)
     ellipsis_ascii = _sum32(torch.where(dot_end, dot_run // 3, 0))
@@ -543,14 +655,37 @@ def fineweb_stats(
     nonws = li.content & ~ws
     reset = _line_reset(li, mask)
 
-    # Per-line cumulative values, read at the line's last content char.
-    char_cnt = seg_scan_add(li.content.to(_I32), reset)
-    byte_cnt = seg_scan_add(torch.where(li.content, utf8_width(cps), 0).to(_I32), reset)
-    has_nonws = seg_scan_or(nonws.to(_I32), reset)
-    line_hash = _poly_hash(cps, li.content, reset)
-    last_nonws = _last_nonws_in_line(nonws, li, mask)
-    total_chars_no_nl = _sum32(mask & ~li.is_nl)
-    newline_count = _sum32(li.is_nl)
+    if fused_scan_ok(*cps.shape):
+        # One launch for the line scans, the line hash, the reversed
+        # last-non-ws counter and the two row totals.  has_nonws becomes a
+        # segmented SUM of the {0,1} stream: every consumer tests "> 0",
+        # where sum and or agree bit for bit.
+        r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
+        res = fused_scan(
+            [
+                _seg_add_group(
+                    (li.content, torch.where(li.content, utf8_width(cps), 0), nonws),
+                    reset,
+                ),
+                _poly_hash_group((cps,), li.content, reset),
+                _seg_add_group((rev(nonws),), r_reset),
+                _sum_group((mask & ~li.is_nl, li.is_nl)),
+            ]
+        )
+        char_cnt, byte_cnt, has_nonws = res[0]
+        (line_hash,) = res[1]
+        last_nonws = rev(rev(nonws) & (res[2][0] == 1))
+        total_chars_no_nl = res[3][0][:, 0]
+        newline_count = res[3][1][:, 0]
+    else:
+        # Per-line cumulative values, read at the line's last content char.
+        char_cnt = seg_scan_add(li.content.to(_I32), reset)
+        byte_cnt = seg_scan_add(torch.where(li.content, utf8_width(cps), 0).to(_I32), reset)
+        has_nonws = seg_scan_or(nonws.to(_I32), reset)
+        line_hash = _poly_hash(cps, li.content, reset)
+        last_nonws = _last_nonws_in_line(nonws, li, mask)
+        total_chars_no_nl = _sum32(mask & ~li.is_nl)
+        newline_count = _sum32(li.is_nl)
 
     lc = li.last_content
     if use_sort_tables():
@@ -977,8 +1112,17 @@ def c4_stage(
 
         # Per-line trim: chars at/after the first non-ws, at/before the last.
         r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
-        after_first = seg_scan_add(nonws.to(_I32), reset) >= 1
-        before_last = rev(seg_scan_add(rev(nonws).to(_I32), r_reset) >= 1)
+        if fused_scan_ok(*cps.shape):
+            # The forward and reversed line counters are independent: one
+            # launch instead of two staged scans.
+            res = fused_scan(
+                [_seg_add_group((nonws,), reset), _seg_add_group((rev(nonws),), r_reset)]
+            )
+            after_first = res[0][0] >= 1
+            before_last = rev(res[1][0] >= 1)
+        else:
+            after_first = seg_scan_add(nonws.to(_I32), reset) >= 1
+            before_last = rev(seg_scan_add(rev(nonws).to(_I32), r_reset) >= 1)
         in_line_trim = li.content & after_first & before_last
 
         deleted = _citation_deleted(li.content)
