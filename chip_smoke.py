@@ -12,26 +12,36 @@ Phases (any failure exits non-zero without the final result line):
    (``sm_90a``), one compiler per source, all at once.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, with ``torch.equal`` (exact: every value is int32), at the
-   shapes the main path gives it (``fused_scan`` with each of its four call
+   shapes the main path gives it: ``fused_scan`` with each of its four call
    sites' group lists and two generic lists, also beyond its 16384-lane
-   gate); then CUDA-event timings beside the bound (the larger of the
-   bytes at 3.35 TB/s and the integer operations at 67 T/s): the kernel
-   and, where one exists, the single PyTorch call computing the same
-   function, each replayed from a CUDA graph (device time); the wrapper's
-   eager call (host cost included); and the plain version.
+   gate; ``chain_scan`` with every call site's program, built by the sites'
+   own builders on batches of corpus documents of each bucket (both C4
+   split modes; above 16384 lanes the sorted-table programs, 8192 and
+   16384 wide), with the JAX package's probe program and with a generic
+   full-range program (every group kind, forward and reverse passes, shift
+   taps with nonzero fills, every emit mode) at every width the chain takes;
+   ``sort3`` with ties and the int32 extremes.  Then CUDA-event timings
+   beside the bound (the larger of the bytes at 3.35 TB/s and the integer
+   operations at 67 T/s): the kernel and, where one exists, the single
+   PyTorch call computing the same function, each replayed from a CUDA
+   graph (device time); the wrapper's eager call (host cost included); and
+   the plain version.
 4. Main path: a seeded synthetic Danish/English corpus of >= 20,000
    documents whose lengths fill all five default buckets is written to
    Parquet and run through the port's ``run`` entry point on ``cuda`` with
-   ``configs/pipeline_config_offline.yaml`` twice: under the fused
-   schedule (the default), then under the staged schedule
-   (``TEXTBLAST_FUSED=off``, on the first 5,000 documents when time is
-   short), then once through the port's host oracle (sharded over the CPU
-   cores, one process per shard).  Each run's kept and excluded sets must
-   equal the oracle's id for id (text and metadata); the fused run must
-   dispatch every default bucket and launch ``fused_scan``,
-   ``affine_scan``, ``dfa_scan`` and ``sort2``; the staged run must launch
-   the last three and never ``fused_scan``.  Launch counters are set to 0
-   just before each run and read just after.
+   ``configs/pipeline_config_offline.yaml``: under the chain schedule (the
+   default) and the fused schedule (``TEXTBLAST_DEPFUSE=off``) over the
+   whole corpus, twice each in turns (chain, fused, fused, chain), and
+   under the staged schedule (``TEXTBLAST_FUSED=off``) over its first 5,000
+   documents; then once through the port's host oracle (sharded over the
+   CPU cores, one process per shard).  Each run's kept and excluded sets
+   must equal the oracle's id for id (text and metadata); the chain run
+   must dispatch every default bucket; each chain run must launch
+   ``chain_scan``, ``fused_scan``, ``affine_scan``, ``dfa_scan`` and
+   ``sort2``; each fused run ``fused_scan`` and never ``chain_scan``; the
+   staged run ``affine_scan``, ``dfa_scan`` and ``sort2`` and neither
+   ``fused_scan`` nor ``chain_scan``.  Launch counters are set to 0 just
+   before each run and read just after.
 5. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -56,8 +66,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # gives no int32 rate, so the kernels' integer operations are held to it.
 OPS_PER_S = 67e12
 N_DOCS = int(os.environ.get("CHIP_SMOKE_DOCS", "20000"))
-STAGED_SUBSET = 5000  # the staged run's documents when time is short
+STAGED_SUBSET = 5000  # the staged run's documents
 SEED = 20251016
+# The offline config's GopherRepetition n-gram sizes.
+TOP_NS, DUP_NS = (2, 3, 4), (5, 6, 7, 8, 9, 10)
 
 # Word lists copied from the repo's bench.py (Danish / English prose).
 DANISH_WORDS = (
@@ -320,8 +332,107 @@ def fused_cost(groups):
     return n_bytes, ops
 
 
-def kernel_phase():
-    """Exactness at every main-path shape, then timings per shape."""
+def text_batch(rows, shape, dev):
+    """A [b, len] batch of corpus documents that fill between a quarter of
+    the row and the row less the packing margin, as a bucket holds them."""
+    import numpy as np
+    import torch
+
+    b, length = shape
+    texts = [t for _, t in rows if length // 4 < len(t) <= length - 4][:b]
+    cps = np.zeros(shape, np.int32)
+    lens = np.zeros(b, np.int32)
+    for i, t in enumerate(texts):
+        cps[i, : len(t)] = [ord(c) for c in t]
+        lens[i] = len(t)
+    return torch.from_numpy(cps).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def site_programs(rows, shape, dev):
+    """name -> the ``chain_scan`` program of every call site, built by the
+    sites' own builders (``ops/stats.py``) on a batch of corpus documents
+    with the offline config's parameters.  Above the chain gate (the 32768
+    and 65536 buckets) only the sorted-table programs, the one chain site
+    those buckets run (its tables are ``max_words`` wide)."""
+    from textblaster_tpu_torch.ops import scan, stats
+    from textblaster_tpu_torch.ops.pipeline import _table_sizes
+
+    cps, lens = text_batch(rows, shape, dev)
+    _, max_words = _table_sizes(shape[1])
+    if shape[1] > scan.FUSED_MAX_LANES:
+        return stats.sorted_table_programs(stats.structure(cps, lens), TOP_NS, DUP_NS, max_words)
+    stop = tuple(sorted({stats.hash_string(w) for w in ("og", "i", "jeg", "det", "at", "en")}))
+    c4 = stats.C4Params(True, True, True, 5, 3, 1000, True, True, True, True)
+    return stats.chain_site_programs(cps, lens, stop, TOP_NS, DUP_NS, max_words, c4)
+
+
+def generic_chain(full_range, packed_maps, shape, dev):
+    """A chain program over full-range int32 operands with every group kind,
+    forward and reverse passes, shift taps with nonzero fills and every
+    emit mode."""
+    import numpy as np
+    import torch
+
+    from textblaster_tpu_torch.ops import scan
+
+    x = full_range(shape)
+    r = torch.from_numpy((np.random.default_rng(shape[1]).random(shape) < 0.05)
+                         .astype(np.int32)).to(dev)
+    m = torch.where(r != 0, 0, 1).to(torch.int32).contiguous()
+    T, cg = scan.Tap, scan.chain_group
+    return [
+        scan.chain_pass([
+            scan.affine_group(m, (x,), emit="none"),
+            scan.affine_group(x, (m, x)),
+            scan.add_group((x, m), emit="last"),
+            scan.dfa_group(packed_maps(shape, 4), 4),
+            scan.dfa_group(packed_maps(shape, 8), 8, emit="none"),
+        ]),
+        scan.chain_pass([
+            scan.segmax_group(x, r),
+            cg("segmax", (T(0, 0), r), prep=scan.reset_value, n_ops=2, emit="none"),
+            cg("copy", (T(0, 6, shift=1, fill=-7), T(0, 1))),
+            cg("add", (T(0, 5, shift=1, fill=123456789),), prep=scan.state_is_one, n_ops=1,
+               emit="last"),
+        ], reverse=True),
+        scan.chain_pass([
+            cg("affine", (T(1, 1, shift=1, fill=5), T(0, 2), T(1, 0))),
+            cg("add", (T(1, 2),), prep=scan.low_bit, n_ops=1),
+            cg("copy", (T(1, 1), T(0, 0, shift=1, fill=-1)), prep=scan.sum2, n_ops=1),
+            cg("dfa", (T(0, 6),), emit="last", n_states=8),
+        ]),
+        scan.chain_pass([
+            cg("add", (T(2, 0, shift=1, fill=2**31 - 1),), prep=scan.twice, n_ops=1, emit="last"),
+            scan.segmax_group(T(2, 1), T(2, 2, shift=1, fill=-5)),
+        ], reverse=True),
+    ]
+
+
+def chain_cost(passes):
+    """(bytes, operations) a chain launch must spend: each external operand
+    read once, each emit-"scan" stream written once, each final carry
+    written once (taps and workspace streams stay on chip in the bound);
+    per element a prep does about one operation per dependency, and the
+    scans as in :func:`fused_cost` (a segmented max 3, a copy none)."""
+    from textblaster_tpu_torch.ops import scan
+
+    _, ext, out_modes, _, _ = scan._chain_plan(passes)
+    b, n = ext[0].shape
+    n_bytes = 4.0 * b * n * (len(ext) + out_modes.count("scan")) + 4.0 * b * out_modes.count("last")
+    ops = 0.0
+    for p in passes:
+        for g in p["groups"]:
+            n_ops = g.get("n_ops", len(g["xs"]))
+            per = len(g["xs"]) if "prep" in g else 0
+            per += {"affine": 1 + 2 * (n_ops - 1), "add": n_ops, "segmax": 3, "copy": 0,
+                    "dfa": 5 * g.get("n_states", 0)}[g["kind"]]
+            ops += b * n * per
+    return n_bytes, ops
+
+
+def kernel_phase(corpus):
+    """Exactness at every main-path shape, then timings per shape; the chain
+    sites' programs are built from ``corpus`` documents."""
     import numpy as np
     import torch
 
@@ -342,8 +453,8 @@ def kernel_phase():
         return torch.from_numpy(out.astype(np.uint32).view(np.int32)).to(dev)
 
     def max_err(got, want):
-        return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-                   for g, w in zip(got, want))
+        return max((int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                    for g, w in zip(got, want)), default=0)
 
     errs = {"affine_scan": 0, "dfa_scan": 0, "sort2": 0}
     per_shape = []
@@ -398,8 +509,71 @@ def kernel_phase():
                     fail(f"fused_scan differs from its plain version at {shape}, list {name}")
                 errs["fused_scan"] = max(errs["fused_scan"], max_err(g, w))
             del groups, got, want
+    # chain_scan: every call site's program, built by the sites' own builders
+    # on corpus batches of the chain buckets and a ragged shape, and the
+    # sorted-table programs on batches of the two wider buckets (tables 8192
+    # and 16384 wide); the JAX probe program and the generic one at every
+    # width the chain takes.
+    errs["chain_scan"] = 0
+    text_shapes = [(64, 512), (64, 2048), (64, 8192), (37, 1000), (64, 32768), (64, 65536)]
+    generic_shapes = [(64, 512), (64, 2048), (64, 8192), (64, 16384), (37, 1000)]
+    sites, chain_widths, site_progs = set(), set(), {}
+
+    def check_chain(label, passes):
+        got = scan.chain_scan(passes)
+        torch.cuda.synchronize()
+        want = scan.chain_scan_plain(passes)
+        for gp, wp in zip(got, want):
+            for g, w in zip(gp, wp):
+                if len(g) != len(w) or not all(
+                    x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w)
+                ):
+                    fail(f"chain_scan differs from its plain version: {label}")
+                errs["chain_scan"] = max(errs["chain_scan"], max_err(g, w))
+        chain_widths.add(tuple(scan._chain_plan(passes)[1][0].shape))
+
+    for shape in text_shapes:
+        programs = site_programs(corpus, shape, dev)
+        site_progs[shape] = programs
+        sites |= set(programs)
+        for name, passes in programs.items():
+            check_chain(f"program {name} on a {list(shape)} batch", passes)
+    for shape in generic_shapes:
+        vals = torch.from_numpy(rng.integers(0, 97, size=shape).astype(np.int32)).to(dev)
+        reset = torch.from_numpy((rng.random(shape) < 0.05).astype(np.int32)).to(dev)
+        check_chain(f"probe program at {list(shape)}", scan.chain_probe_program(vals, reset))
+        check_chain(f"generic program at {list(shape)}",
+                    generic_chain(full_range, packed_maps, shape, dev))
+    want_sites = {"structure", "structure_nohash", "gopher_quality", "gopher_rep",
+                  "sorted_tables", "sorted_tables_rest", "c4_trim", "c4_sentences", "c4_post",
+                  "sentence_counts"}
+    if sites != want_sites:
+        fail(f"chain programs built for {sorted(sites)}, expected {sorted(want_sites)}")
+    # sort3: ties and both int32 extremes, 64 rows.
+    errs["sort3"] = 0
+    sort3_widths = (256, 512, 2048, 8192, 16384)
+
+    def keys3(width):
+        ks = []
+        for _ in range(3):
+            k = rng.integers(-3, 3, size=(64, width)).astype(np.int32)
+            k[rng.random(k.shape) < 0.05] = 2**31 - 1
+            k[rng.random(k.shape) < 0.05] = -(2**31)
+            ks.append(torch.from_numpy(k).to(dev))
+        return ks
+
+    for width in sort3_widths:
+        ks = keys3(width)
+        got = sort.sort3(*ks)
+        torch.cuda.synchronize()
+        want = sort.sort3_plain(*ks)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"sort3 differs from its plain version at [64, {width}]")
+        errs["sort3"] = max(errs["sort3"], max_err(got, want))
     print(f"kernels exact: affine_scan and dfa_scan at {scan_shapes}, "
-          f"sort2 at {sort_shapes}, fused_scan at {fused_shapes}", flush=True)
+          f"sort2 at {sort_shapes}, fused_scan at {fused_shapes}, chain_scan at "
+          f"{sorted(chain_widths)} (sites {sorted(sites)} on batches {text_shapes}; probe and "
+          f"generic at {generic_shapes}), sort3 at 64 x {sort3_widths}", flush=True)
 
     # Timings: per shape (written to the JSON file), and the representative
     # main-path call per kernel (the kernels line).
@@ -474,9 +648,38 @@ def kernel_phase():
                 library_ms=None, **bound(*fused_cost(groups)),
             ))
             del groups
+    # Each chain site's program on the 64-row batches of every bucket (at
+    # the program's own shape: a sorted-table program is max_words wide),
+    # and sort3.  No single PyTorch call computes either: library_ms is null.
+    for shape in text_shapes:
+        if shape[0] != 64:
+            continue
+        for site, passes in site_progs[shape].items():
+            per_shape.append(dict(
+                kernel="chain_scan", site=site, bucket=shape[1],
+                shape=list(scan._chain_plan(passes)[1][0].shape),
+                ms=graph_ms(lambda: scan.chain_scan(passes)),
+                call_ms=cuda_ms(lambda: scan.chain_scan(passes)),
+                plain_ms=cuda_ms(lambda: scan.chain_scan_plain(passes), 3),
+                library_ms=None, **bound(*chain_cost(passes)),
+            ))
+    for width in sort3_widths:
+        ks = keys3(width)
+        lg = max(1, (width - 1).bit_length())
+        # Three int32 keys in and out per element; each compare-exchange a
+        # 96-bit compare (3 operations) and two selects.
+        exchanges = 64 * (1 << lg) // 2 * lg * (lg + 1) // 2
+        per_shape.append(dict(
+            kernel="sort3", shape=[64, width],
+            ms=graph_ms(lambda: sort.sort3(*ks)),
+            call_ms=cuda_ms(lambda: sort.sort3(*ks)),
+            plain_ms=cuda_ms(lambda: sort.sort3_plain(*ks), 3),
+            library_ms=None, **bound(24.0 * 64 * width, 5.0 * exchanges),
+        ))
     for row in per_shape:
         label = row["kernel"] + (f":{row['site']}" if "site" in row else "")
-        print(f"  {label:26s} {str(row['shape']):16s} kernel {row['ms']:.4f} ms"
+        label += f"@{row['bucket']}" if "bucket" in row else ""
+        print(f"  {label:32s} {str(row['shape']):16s} kernel {row['ms']:.4f} ms"
               f"  call {row['call_ms']:.4f} ms"
               f"  plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
               + (f"  library {row['library_ms']:.4f} ms" if row["library_ms"] else ""),
@@ -488,6 +691,10 @@ def kernel_phase():
         # The main path's largest fused call: gopher_quality's 4 groups.
         "fused_scan": next(r for r in per_shape if r["kernel"] == "fused_scan"
                            and r["site"] == "gopher_quality" and r["shape"] == [64, 8192]),
+        # The main path's largest chain program: structure with hashes.
+        "chain_scan": next(r for r in per_shape if r["kernel"] == "chain_scan"
+                           and r["site"] == "structure" and r["bucket"] == 8192),
+        "sort3": next(r for r in per_shape if r["kernel"] == "sort3" and r["shape"] == [64, 16384]),
     }
     return errs, rep, per_shape
 
@@ -536,6 +743,7 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
     for d in (scan.LAUNCHES, sort.LAUNCHES, stats.DUP_WALK):
         for k in d:
             d[k] = 0
+    scan.CHAIN_SITE_LAUNCHES.clear()
     t0 = time.perf_counter()
     res = run_pipeline(config, inp, *out, backend="device", pipeline=pipe)
     if device == "cuda":
@@ -550,6 +758,7 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
         "device_seconds": dev_s,
         "device_docs_per_s": res.received / dev_s,
         "launches": {**scan.LAUNCHES, **sort.LAUNCHES},
+        "chain_site_launches": dict(scan.CHAIN_SITE_LAUNCHES),
         "pipeline_launches": dict(pipe.counters["launches"]),
         "batches_by_bucket": {str(k): v for k, v in sorted(pipe.counters["batches_by_bucket"].items())},
         "device_rows": pipe.counters["device_rows"],
@@ -576,21 +785,35 @@ def _parity(run, host_kept, host_excl, ids=None):
     return agree / max(len(host_kept) + len(host_excl), 1), equal
 
 
-def main_path(device: str, n_docs: int, work: str, t_start: float):
-    """The fused schedule (this port's default) over the whole corpus, then
-    the staged schedule (``TEXTBLAST_FUSED=off``, set for that run only),
-    both held against one host-oracle run."""
+def scheduled_run(config, inp, work, tag, device, switch=None):
+    """:func:`device_run` with one schedule switch set to ``off`` for the
+    run only."""
+    prev = os.environ.get(switch) if switch else None
+    if switch:
+        os.environ[switch] = "off"
+    try:
+        return device_run(config, inp, work, tag, device)
+    finally:
+        if switch and prev is None:
+            del os.environ[switch]
+        elif switch:
+            os.environ[switch] = prev
+
+
+def main_path(device: str, rows, work: str):
+    """The chain schedule (this port's default) and the fused schedule
+    (``TEXTBLAST_DEPFUSE=off``) over the whole corpus, twice each in turns
+    (chain, fused, fused, chain: a drift of the host over the call weighs
+    on both alike), the staged schedule (``TEXTBLAST_FUSED=off``) over its
+    first ``STAGED_SUBSET`` documents, every run held against one
+    host-oracle run."""
     from textblaster_tpu_torch.config.pipeline import load_pipeline_config
     from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
 
     os.makedirs(work, exist_ok=True)
-    t0 = time.perf_counter()
-    rows = make_corpus(n_docs, SEED)
     inp = os.path.join(work, "corpus.parquet")
     write_parquet(inp, rows)
     n_chars = sum(len(r[1]) for r in rows)
-    print(f"corpus: {len(rows)} documents, {n_chars} chars, "
-          f"{time.perf_counter() - t0:.1f} s to make", flush=True)
     config = load_pipeline_config(CONFIG)
 
     # Warm-up, not measured: tables, the language model and the host
@@ -600,63 +823,53 @@ def main_path(device: str, n_docs: int, work: str, t_start: float):
     write_parquet(warm, rows[:200])
     device_run(config, warm, work, "warmup", device)
 
-    fused = device_run(config, inp, work, "fused", device)
-
-    # The staged run takes the first STAGED_SUBSET documents instead when
-    # the whole corpus would bring the script past ~600 s (a second device
-    # run plus the host oracle, each about as long as the fused run).
-    staged_inp, staged_ids = inp, None
-    if time.perf_counter() - t_start + 2 * fused["device_seconds"] > 600:
-        sub = rows[:STAGED_SUBSET]
-        staged_inp = os.path.join(work, "corpus_staged.parquet")
-        write_parquet(staged_inp, sub)
-        staged_ids = {r[0] for r in sub}
-    prev = os.environ.get("TEXTBLAST_FUSED")
-    os.environ["TEXTBLAST_FUSED"] = "off"
-    try:
-        staged = device_run(config, staged_inp, work, "staged", device)
-    finally:
-        if prev is None:
-            del os.environ["TEXTBLAST_FUSED"]
-        else:
-            os.environ["TEXTBLAST_FUSED"] = prev
+    runs = [scheduled_run(config, inp, work, tag, device, switch)
+            for tag, switch in (("chain", None), ("fused", "TEXTBLAST_DEPFUSE"),
+                                ("fused_2", "TEXTBLAST_DEPFUSE"), ("chain_2", None))]
+    sub = rows[:STAGED_SUBSET]
+    staged_inp = os.path.join(work, "corpus_staged.parquet")
+    write_parquet(staged_inp, sub)
+    runs.append(scheduled_run(config, staged_inp, work, "staged", device, "TEXTBLAST_FUSED"))
 
     t0 = time.perf_counter()
     host_kept, host_excl, host_received = host_oracle(inp, work)
     host_s = time.perf_counter() - t0
 
-    fused["decision_parity"], fused_equal = _parity(fused, host_kept, host_excl)
-    staged["decision_parity"], staged_equal = _parity(staged, host_kept, host_excl, staged_ids)
     summary = {
         "documents": len(rows),
         "chars": n_chars,
-        "staged_documents": len(staged_ids) if staged_ids else len(rows),
+        "staged_documents": len(sub),
         "host_oracle_seconds": host_s,
-        "fused": fused,
-        "staged": staged,
     }
-    for run in (fused, staged):
-        print(f"main path, {run['schedule']} schedule: {run['received']} documents, "
+    must = {"chain": ("chain_scan", "fused_scan", "affine_scan", "dfa_scan", "sort2"),
+            "fused": ("fused_scan", "affine_scan", "dfa_scan", "sort2"),
+            "staged": ("affine_scan", "dfa_scan", "sort2")}
+    never = {"chain": (), "fused": ("chain_scan",), "staged": ("fused_scan", "chain_scan")}
+    for run in runs:
+        tag = run["schedule"]
+        whole = tag != "staged"
+        run["decision_parity"], equal = _parity(
+            run, host_kept, host_excl, None if whole else {r[0] for r in sub}
+        )
+        summary[tag] = run
+        print(f"main path, {tag} schedule: {run['received']} documents, "
               f"{run['device_docs_per_s']:.2f} docs/s ({run['device_seconds']:.2f} s), "
               f"parity {run['decision_parity']}, phase seconds {json.dumps(run['seconds'])}, "
               f"dup walk {run['dup_walk']['seconds']:.2f} s, launches {run['launches']}",
               flush=True)
+        if not equal or (whole and run["received"] != host_received):
+            fail(f"{tag} run and host oracle differ (parity {run['decision_parity']})")
+        schedule = tag.split("_")[0]
+        for k in must[schedule]:
+            if run["launches"][k] <= 0:
+                fail(f"kernel {k} was never launched on the {tag} main path")
+        for k in never[schedule]:
+            if run["launches"][k] != 0:
+                fail(f"the {tag} schedule launched {k}")
     print("main path: " + json.dumps(summary), flush=True)
-    if fused["received"] != host_received or not fused_equal:
-        fail(f"fused run and host oracle differ (parity {fused['decision_parity']})")
-    if not staged_equal:
-        fail(f"staged run and host oracle differ (parity {staged['decision_parity']})")
-    missing = [b for b in DEFAULT_BUCKETS if fused["batches_by_bucket"].get(str(b), 0) == 0]
+    missing = [b for b in DEFAULT_BUCKETS if summary["chain"]["batches_by_bucket"].get(str(b), 0) == 0]
     if missing:
         fail(f"buckets never dispatched: {missing}")
-    for k in ("fused_scan", "affine_scan", "dfa_scan", "sort2"):
-        if fused["launches"][k] <= 0:
-            fail(f"kernel {k} was never launched on the fused main path")
-    for k in ("affine_scan", "dfa_scan", "sort2"):
-        if staged["launches"][k] <= 0:
-            fail(f"kernel {k} was never launched on the staged main path")
-    if staged["launches"]["fused_scan"] != 0:
-        fail("the staged schedule launched fused_scan")
     return summary
 
 
@@ -685,27 +898,36 @@ def main() -> int:
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         print(f"  ptxas {lib}: " + " | ".join(regs), flush=True)
 
-    errs, rep, per_shape = kernel_phase()
+    t0 = time.perf_counter()
+    rows = make_corpus(N_DOCS, SEED)
+    print(f"corpus: {len(rows)} documents, {sum(len(r[1]) for r in rows)} chars, "
+          f"{time.perf_counter() - t0:.1f} s to make", flush=True)
+
+    errs, rep, per_shape = kernel_phase(rows)
     walk = time_dup_walk()
     print(f"dup walk (torch loop): {walk}", flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
-    summary = main_path("cuda", N_DOCS, work, t_start)
+    summary = main_path("cuda", rows, work)
 
     sources = {"affine_scan": "textblaster_tpu_torch/csrc/scan.cu",
                "dfa_scan": "textblaster_tpu_torch/csrc/scan.cu",
                "sort2": "textblaster_tpu_torch/csrc/sort.cu",
-               "fused_scan": "textblaster_tpu_torch/csrc/fused.cu"}
+               "sort3": "textblaster_tpu_torch/csrc/sort.cu",
+               "fused_scan": "textblaster_tpu_torch/csrc/fused.cu",
+               "chain_scan": "textblaster_tpu_torch/csrc/chain.cu"}
     replaces = {"affine_scan": "textblaster_tpu/ops/pallas_scan.py:244",
                 "dfa_scan": "textblaster_tpu/ops/pallas_scan.py:244",
                 "sort2": "textblaster_tpu/ops/pallas_sort.py:160",
-                "fused_scan": "textblaster_tpu/ops/pallas_scan.py:435"}
+                "sort3": "textblaster_tpu/ops/pallas_sort.py:181",
+                "fused_scan": "textblaster_tpu/ops/pallas_scan.py:435",
+                "chain_scan": "textblaster_tpu/ops/pallas_scan.py:930"}
     kernels = []
-    for k in ("affine_scan", "dfa_scan", "sort2", "fused_scan"):
+    for k in ("affine_scan", "dfa_scan", "sort2", "sort3", "fused_scan", "chain_scan"):
         r = rep[k]
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
-            "launches": summary["fused"]["launches"][k], "max_abs_err": errs[k],
+            "launches": summary["chain"]["launches"][k], "max_abs_err": errs[k],
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from textblaster_tpu_torch.ops import scan, sort
+from textblaster_tpu_torch.ops import stats
 
 pytestmark = pytest.mark.torch_port
 
@@ -121,3 +122,147 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         scan.fused_scan([scan.add_group((torch.zeros((8, 4), dtype=torch.int32, device=cuda).t(),))])
     with pytest.raises(ValueError):
         scan.fused_scan([scan.dfa_group(x, 9)])
+
+
+# --- chain_scan ------------------------------------------------------------------
+
+
+def _generic_chain(rng, shape, dev):
+    """Every group kind, forward and reverse passes, shift taps with nonzero
+    fills, emit scan / last / none, on full-range int32 operands."""
+    x = _full_range(rng, shape, dev)
+    r = torch.from_numpy((rng.random(shape) < 0.05).astype(np.int32)).to(dev)
+    m = torch.where(r != 0, 0, 1).to(torch.int32).contiguous()
+    f4, f8 = _packed_maps(rng, shape, 4, dev), _packed_maps(rng, shape, 8, dev)
+    T, cg = scan.Tap, scan.chain_group
+    return [
+        scan.chain_pass([
+            scan.affine_group(m, (x,), emit="none"),
+            scan.affine_group(x, (m, x)),
+            scan.add_group((x, m), emit="last"),
+            scan.dfa_group(f4, 4),
+            scan.dfa_group(f8, 8, emit="none"),
+        ]),
+        scan.chain_pass([
+            scan.segmax_group(x, r),
+            cg("segmax", (T(0, 0), r), prep=scan.reset_value, n_ops=2, emit="none"),
+            cg("copy", (T(0, 6, shift=1, fill=-7), T(0, 1))),
+            cg("add", (T(0, 5, shift=1, fill=123456789),), prep=scan.state_is_one, n_ops=1,
+               emit="last"),
+        ], reverse=True),
+        scan.chain_pass([
+            cg("affine", (T(1, 1, shift=1, fill=5), T(0, 2), T(1, 0))),
+            cg("add", (T(1, 2),), prep=scan.low_bit, n_ops=1),
+            cg("copy", (T(1, 1), T(0, 0, shift=1, fill=-1)), prep=scan.sum2, n_ops=1, emit="scan"),
+            cg("dfa", (T(0, 6),), emit="last", n_states=8),
+        ]),
+        scan.chain_pass([
+            cg("add", (T(2, 0, shift=1, fill=2**31 - 1),), prep=scan.twice, n_ops=1, emit="last"),
+            scan.segmax_group(T(2, 1), T(2, 2, shift=1, fill=-5)),
+        ], reverse=True),
+    ]
+
+
+def _assert_chain_equal(got, want):
+    assert len(got) == len(want)
+    for gp, wp in zip(got, want):
+        assert len(gp) == len(wp)
+        for g, w in zip(gp, wp):
+            assert len(g) == len(w)
+            assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.parametrize("shape", [(37, 1000), (8, 2048), (64, 8192), (2, 5000)])
+def test_chain_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(shape[1])
+    r = torch.from_numpy((rng.random(shape) < 0.05).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 97, size=shape).astype(np.int32)).to(cuda)
+    for passes in (_generic_chain(rng, shape, cuda), scan.chain_probe_program(vals, r)):
+        before = scan.LAUNCHES["chain_scan"]
+        got = scan.chain_scan(passes)
+        assert scan.LAUNCHES["chain_scan"] == before + 1
+        _assert_chain_equal(got, scan.chain_scan_plain(passes))
+
+
+def _text_batch(dev, length=1024, rows=8):
+    texts = [
+        "",
+        "Samme linje her igen og igen.\n" * 12,
+        "Det er en god dag [1], og vi skal ud at gå tur.\nSolen skinner... Der er mange!\n\n"
+        "- punkt et\n• punkt to\nLorem ipsum dolor sit amet javascript …",
+        "数据处理流水线的测试文本。 Og lidt dansk tekst her.",
+        "𝔘𝔫𝔦𝔠𝔬𝔡𝔢 𝕋𝕖𝕩𝕥 🚀 and café́ ascii. Terms of use apply {x}.",
+        ("ord " * 400)[:length],
+        "en to tre fire fem seks en to tre fire fem seks en to tre fire fem",
+        "Line one.\r\n\r\nLine two [3] ends here. Yes! \"Quoted.\" Done?",
+    ]
+    cps = np.zeros((rows, length), np.int32)
+    lens = np.zeros(rows, np.int32)
+    for i, t in enumerate(texts[:rows]):
+        cp = [ord(c) for c in t][:length]
+        cps[i, : len(cp)] = cp
+        lens[i] = len(cp)
+    return torch.from_numpy(cps).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("impl", ["scatter", "sort"])
+def test_chain_kernel_matches_plain_at_every_site(cuda, monkeypatch, impl):
+    """Each call site's program, built by the site's own builder from a text
+    batch, through the kernel and the plain version."""
+    monkeypatch.setenv("TEXTBLAST_TABLE_IMPL", impl)
+    cps, lens = _text_batch(cuda)
+    c4 = stats.C4Params(True, True, True, 5, 3, 1000, True, True, True, True)
+    programs = stats.chain_site_programs(cps, lens, (1, 2, 3), (2, 3, 4),
+                                         (5, 6, 7, 8, 9, 10), 256, c4)
+    assert set(programs) == {"structure", "structure_nohash", "gopher_quality", "gopher_rep",
+                             "sorted_tables", "sorted_tables_rest", "c4_trim", "c4_sentences",
+                             "c4_post", "sentence_counts"}
+    for passes in programs.values():
+        _assert_chain_equal(scan.chain_scan(passes), scan.chain_scan_plain(passes))
+
+
+def test_chain_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # a prep without a kernel id
+        scan.chain_scan([scan.chain_pass([
+            scan.chain_group("add", (x,), prep=lambda a: (a + 1,), n_ops=1)])])
+    with pytest.raises(ValueError):  # a registered prep given the wrong dep count
+        scan.chain_scan([scan.chain_pass([
+            scan.chain_group("add", (x, x), prep=scan.twice, n_ops=1)])])
+    with pytest.raises(ValueError):  # 6 operands in one group
+        scan.chain_scan([scan.chain_pass([scan.add_group((x,) * 6)])])
+    with pytest.raises(TypeError):
+        scan.chain_scan([scan.chain_pass([scan.add_group((x.long(),))])])
+    with pytest.raises(ValueError):  # not contiguous
+        y = torch.zeros((8, 4), dtype=torch.int32, device=cuda).t()
+        scan.chain_scan([scan.chain_pass([scan.add_group((y,))])])
+    with pytest.raises(ValueError):  # 9 passes
+        scan.chain_scan([scan.chain_pass([scan.add_group((x,))])] * 9)
+
+
+# --- sort3 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", [1, 100, 256, 8192, 16384, 32768])
+def test_sort3_kernel_matches_plain(cuda, width):
+    rng = np.random.default_rng(width + 3)
+    ks = []
+    for _ in range(3):
+        k = rng.integers(-3, 3, size=(8, width)).astype(np.int32)
+        k[rng.random(k.shape) < 0.05] = I32_MAX
+        k[rng.random(k.shape) < 0.05] = -(2**31)
+        ks.append(torch.from_numpy(k).to(cuda))
+    before = sort.LAUNCHES["sort3"]
+    got, want = sort.sort3(*ks), sort.sort3_plain(*ks)
+    assert sort.LAUNCHES["sort3"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_sort3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sort.sort3(x, x, x.long())
+    with pytest.raises(ValueError):
+        sort.sort3(x, x, x[:, :4])
+    with pytest.raises(ValueError):
+        sort.sort3(x.t(), x.t(), x.t())

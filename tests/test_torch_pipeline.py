@@ -2,11 +2,12 @@
 and the whole ``run``, on the CPU.
 
 Both sides get the same packed batches; every statistic is int32 (or bool)
-and must match exactly.  The per-(bucket, phase) check runs under both
-schedules (fused and staged).  The whole-run check compares the kept and
-excluded Parquet files as id-keyed sets (id, text, metadata, reason): the port's
-``run --device cpu`` against the JAX package's compiled pipeline pinned to
-the CPU, which in turn must equal the host oracle.
+and must match exactly.  The per-(bucket, phase) check runs under the three
+schedules (chain, fused and staged).  The whole-run check compares the kept
+and excluded Parquet files as id-keyed sets (id, text, metadata, reason): the
+port's ``run --device cpu`` under each schedule against the JAX package's
+compiled pipeline pinned to the CPU, which in turn must equal the host
+oracle.
 """
 
 import numpy as np
@@ -91,18 +92,20 @@ def corpus():
 
 
 @pytest.mark.parametrize(
-    "bucket,schedule", [(512, "fused"), (512, "staged"), (2048, "staged")]
+    "bucket,schedule", [(512, "fused"), (512, "staged"), (2048, "staged"), (512, "chain")]
 )
 def test_stats_dict_matches_jax_per_bucket_phase(corpus, monkeypatch, bucket, schedule):
-    """Fused: the port's default against the JAX package's fused branches
-    (interpret mode, ``chain_scan`` off; at 512 only, as interpret mode
-    compiles slowly).  Staged: ``TEXTBLAST_FUSED=off`` on both sides."""
-    for var in ("TEXTBLAST_PALLAS", "TEXTBLAST_NO_PALLAS", "TEXTBLAST_FUSED"):
+    """Chain: the port's default against the JAX package's chain branches,
+    and fused (``TEXTBLAST_DEPFUSE=off``) against its fused ones, the JAX
+    kernels in interpret mode (at 512 only, as interpret mode compiles
+    slowly).  Staged: ``TEXTBLAST_FUSED=off`` on both sides."""
+    for var in ("TEXTBLAST_PALLAS", "TEXTBLAST_NO_PALLAS", "TEXTBLAST_FUSED", "TEXTBLAST_DEPFUSE"):
         monkeypatch.delenv(var, raising=False)
-    if schedule == "fused":
+    if schedule in ("chain", "fused"):
         monkeypatch.setenv("TEXTBLAST_PALLAS_INTERPRET", "1")
+    if schedule == "fused":
         monkeypatch.setenv("TEXTBLAST_DEPFUSE", "off")
-    else:
+    elif schedule == "staged":
         monkeypatch.setenv("TEXTBLAST_FUSED", "off")
     jax_cfg = jax_load_config(CONFIG)
     port_cfg = load_pipeline_config(CONFIG)
@@ -143,19 +146,27 @@ def test_small_leftover_groups_run_on_the_device(corpus, monkeypatch):
     assert tp.counters["device_rows"] >= len(rows) - n_cjk
 
 
-def test_run_matches_jax_and_host_oracle(corpus, tmp_path):
-    inp = tmp_path / "in.parquet"
+@pytest.fixture(scope="module")
+def reference_run(corpus, tmp_path_factory):
+    """The corpus' Parquet file and the JAX package's kept/excluded sets,
+    from its compiled pipeline on the CPU and from the host oracle."""
+    tmp = tmp_path_factory.mktemp("reference_run")
+    inp = tmp / "in.parquet"
     _write_parquet(inp, corpus)
     jax_cfg = jax_load_config(CONFIG)
     outs = {}
     for name in ("jax", "host"):
-        o, e = tmp_path / f"{name}_out.parquet", tmp_path / f"{name}_excl.parquet"
+        o, e = tmp / f"{name}_out.parquet", tmp / f"{name}_excl.parquet"
         jax_run(
             jax_cfg, str(inp), str(o), str(e),
             backend="tpu" if name == "jax" else "host",
             buckets=BUCKETS, device_batch=16, quiet=True, warmup=False,
         )
         outs[name] = (_read_set(o), _read_set(e))
+    return inp, outs
+
+
+def _port_run(inp, tmp_path):
     o, e = tmp_path / "port_out.parquet", tmp_path / "port_excl.parquet"
     rc = port_main([
         "run", "-i", str(inp), "-c", CONFIG, "-o", str(o), "-e", str(e),
@@ -163,8 +174,27 @@ def test_run_matches_jax_and_host_oracle(corpus, tmp_path):
         "--device-batch", "16", "--quiet",
     ])
     assert rc == 0
-    outs["port"] = (_read_set(o), _read_set(e))
+    return _read_set(o), _read_set(e)
+
+
+def test_run_matches_jax_and_host_oracle(corpus, reference_run, tmp_path, monkeypatch):
+    """The port's default schedule, chain."""
+    for var in ("TEXTBLAST_FUSED", "TEXTBLAST_DEPFUSE"):
+        monkeypatch.delenv(var, raising=False)
+    inp, outs = reference_run
+    port = _port_run(inp, tmp_path)
     assert outs["jax"] == outs["host"]
-    assert outs["port"] == outs["jax"]
-    kept, excluded = outs["port"]
+    assert port == outs["jax"]
+    kept, excluded = port
     assert kept and excluded and len(kept) + len(excluded) == len(corpus)
+
+
+@pytest.mark.parametrize("switch", ["TEXTBLAST_DEPFUSE", "TEXTBLAST_FUSED"])
+def test_run_other_schedules_match_jax(reference_run, tmp_path, monkeypatch, switch):
+    """The fused schedule (``TEXTBLAST_DEPFUSE=off``) and the staged one
+    (``TEXTBLAST_FUSED=off``) give the same run."""
+    for var in ("TEXTBLAST_FUSED", "TEXTBLAST_DEPFUSE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv(switch, "off")
+    inp, outs = reference_run
+    assert _port_run(inp, tmp_path) == outs["jax"]

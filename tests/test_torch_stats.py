@@ -4,10 +4,11 @@
 n-gram rarity gate fired and not fired), ``fineweb_stats``,
 ``sentence_counts`` and ``c4_stage`` (both segmentation modes) on an edge
 corpus — CJK, astral, empty and maximum-length rows, repeated lines and
-``[1]`` / ``[2, 3]`` citations — in both table forms.  The functions with a
-fused branch run under both schedules (the ``schedule`` fixture): fused,
-against the JAX package's interpret-mode fused kernel under
-``TEXTBLAST_DEPFUSE=off``, and staged, against its staged branch.  Every
+``[1]`` / ``[2, 3]`` citations — in both table forms.  The functions run
+under the three schedules (the ``schedule`` fixture and the ``sched``
+parameters): chain, against the JAX package's interpret-mode chain kernel;
+fused, against its interpret-mode fused kernel under
+``TEXTBLAST_DEPFUSE=off``; and staged, against its staged branch.  Every
 value is an int32 or bool array and must match exactly.
 """
 
@@ -71,19 +72,22 @@ def _eq_dict(got, want):
 
 
 def _set_schedule(monkeypatch, sched):
-    """Both packages read the switches.  Fused: the port's default, and the
-    JAX package's fused branch, its kernel in interpret mode, with
-    ``chain_scan`` off.  Staged: ``TEXTBLAST_FUSED=off`` on both sides."""
-    for var in ("TEXTBLAST_PALLAS", "TEXTBLAST_NO_PALLAS", "TEXTBLAST_FUSED"):
+    """Both packages read the switches.  Chain: the port's default, and the
+    JAX package's chain branches, their kernel in interpret mode.  Fused:
+    ``TEXTBLAST_DEPFUSE=off``, the JAX fused kernel in interpret mode.
+    Staged: ``TEXTBLAST_FUSED=off`` on both sides."""
+    for var in ("TEXTBLAST_PALLAS", "TEXTBLAST_NO_PALLAS", "TEXTBLAST_FUSED",
+                "TEXTBLAST_DEPFUSE"):
         monkeypatch.delenv(var, raising=False)
-    if sched == "fused":
+    if sched in ("chain", "fused"):
         monkeypatch.setenv("TEXTBLAST_PALLAS_INTERPRET", "1")
+    if sched == "fused":
         monkeypatch.setenv("TEXTBLAST_DEPFUSE", "off")
-    else:
+    elif sched == "staged":
         monkeypatch.setenv("TEXTBLAST_FUSED", "off")
 
 
-@pytest.fixture(params=["fused", "staged"])
+@pytest.fixture(params=["fused", "staged", "chain"])
 def schedule(request, monkeypatch):
     _set_schedule(monkeypatch, request.param)
     return request.param
@@ -154,8 +158,26 @@ def test_gopher_rep_stats(monkeypatch, impl, texts, fires):
     assert bool(got["dup_5"].any()) == fires
 
 
+@pytest.mark.parametrize("impl", ["scatter", "sort"])
+def test_gopher_rep_stats_chain(monkeypatch, impl):
+    """The chain schedule against the JAX chain branches (the segment scans
+    and the sorted-table run scans), the rarity gate fired."""
+    monkeypatch.setenv("TEXTBLAST_TABLE_IMPL", impl)
+    _set_schedule(monkeypatch, "chain")
+    (jc, jl), (tc, tl) = _both(DIRTY)
+    top, dup = (2, 3, 4), (5, 6, 7, 8, 9, 10)
+
+    def jfn(c, n):
+        return js.gopher_rep_stats(js.structure(c, n), top, dup, MAX_LINES, MAX_WORDS)
+
+    got = ts.gopher_rep_stats(ts.structure(tc, tl), top, dup, MAX_LINES, MAX_WORDS)
+    _eq_dict(got, _jit(jfn)(jc, jl))
+    assert bool(got["dup_5"].any())
+
+
 @pytest.mark.parametrize(
-    "impl,sched", [("scatter", "fused"), ("scatter", "staged"), ("sort", "staged")]
+    "impl,sched",
+    [("scatter", "fused"), ("scatter", "staged"), ("sort", "staged"), ("scatter", "chain")],
 )
 def test_fineweb_stats(monkeypatch, impl, sched):
     monkeypatch.setenv("TEXTBLAST_TABLE_IMPL", impl)
@@ -175,6 +197,13 @@ def test_sentence_counts():
     _eq(ts.sentence_counts(tc, tl), _jit(js.sentence_counts)(jc, jl), "n_sentences")
 
 
+@pytest.mark.parametrize("sched", ["chain", "staged"])
+def test_sentence_counts_schedules(monkeypatch, sched):
+    _set_schedule(monkeypatch, sched)
+    (jc, jl), (tc, tl) = _both(DIRTY)
+    _eq(ts.sentence_counts(tc, tl), _jit(js.sentence_counts)(jc, jl), "n_sentences")
+
+
 @pytest.mark.parametrize(
     "impl,split_paragraph,sched",
     [
@@ -182,6 +211,10 @@ def test_sentence_counts():
         ("scatter", True, "staged"),
         ("sort", True, "staged"),
         ("scatter", False, "staged"),
+        ("scatter", True, "chain"),
+        ("sort", True, "chain"),
+        ("scatter", False, "chain"),
+        ("sort", False, "chain"),
     ],
 )
 def test_c4_stage(monkeypatch, impl, split_paragraph, sched):

@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into its own shared library with
 a plain C interface, and loaded with :mod:`ctypes`.  The libraries live in
 ``build/torch_kernels/<hash>/`` beside the package (the hash covers every
-source and the flags), so a changed source rebuilds and an unchanged one
-loads at once.  All sources compile concurrently, one ``nvcc`` each.
+file under ``csrc/``, headers included, and the flags), so a changed source
+rebuilds and an unchanged one loads at once.  All sources compile concurrently, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines that have no ``nvcc``.  :func:`load` is called by a kernel wrapper
@@ -30,7 +30,9 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 #: Library name -> source file under csrc/.
-SOURCES: Dict[str, str] = {"fused": "fused.cu", "scan": "scan.cu", "sort": "sort.cu"}
+SOURCES: Dict[str, str] = {
+    "chain": "chain.cu", "fused": "fused.cu", "scan": "scan.cu", "sort": "sort.cu",
+}
 
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -70,8 +72,8 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in sorted(SOURCES):
-        with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
+    for name in sorted(os.listdir(_CSRC)):
+        with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
@@ -127,10 +129,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "sort":
         lib.tb_sort2.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.tb_sort2.restype = i
+        lib.tb_sort3.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.tb_sort3.restype = i
     elif name == "fused":
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
         lib.tb_fused_scan.argtypes = [i, ip, ip, ip, ip, pp, i, pp, i, i, i, p]
         lib.tb_fused_scan.restype = i
+    elif name == "chain":
+        ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+        lib.tb_chain_scan.argtypes = [ip, i, pp, i, pp, i, i, i, p]
+        lib.tb_chain_scan.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,18 +9,19 @@ overflow a kernel table bound, that are longer than the largest bucket, or
 that contain dictionary-segmented scripts are decided by the host oracle
 (counted in :attr:`CompiledPipeline.counters`).
 
-The statistic functions run one of two of the JAX package's schedules
-(:mod:`.stats`): the *fused* schedule by default, which evaluates the
-independent scans of four functions in one ``fused_scan`` launch at
-buckets up to 16384 (the JAX package under ``TEXTBLAST_DEPFUSE=off``), or
-the *staged* schedule under ``TEXTBLAST_FUSED=off``.  Both give the same
-statistics.  :attr:`CompiledPipeline.counters` ``["launches"]`` counts the
-hand-written kernels' launches by kernel.
+The statistic functions run one of the JAX package's three schedules
+(:mod:`.stats`): the *chain* schedule by default, which evaluates each of
+eight sites' dependent scans in one ``chain_scan`` launch at buckets up to
+16384; the *fused* schedule under ``TEXTBLAST_DEPFUSE=off``, one
+``fused_scan`` launch of independent scans per function; or the *staged*
+schedule under ``TEXTBLAST_FUSED=off``.  All give the same statistics.
+:attr:`CompiledPipeline.counters` ``["launches"]`` counts the hand-written
+kernels' launches by kernel.
 
 Batches run serially: one at a time, survivors repacked between phases.
-Uploads are int32.  Not ported yet: ``chain_scan``, C4BadWords on the
-device (it runs as a host step), the uint16 wire, the K-deep overlap
-window, the retry/split/host ladder, meshes and warmup.
+Uploads are int32.  Not ported yet: C4BadWords on the device (it runs as a
+host step), the uint16 wire, the K-deep overlap window, the
+retry/split/host ladder, meshes and warmup.
 """
 
 from __future__ import annotations

@@ -1,23 +1,29 @@
-"""Row-wise inclusive scans: the per-scan kernels and the fused multi-group scan.
+"""Row-wise inclusive scans: the per-scan kernels, the fused multi-group
+scan and the dependency-chained multi-pass scan.
 
 The port's counterpart of the JAX package's
-``textblaster_tpu/ops/pallas_scan.py`` without ``chain_scan``:
+``textblaster_tpu/ops/pallas_scan.py``:
 
 * the per-scan half, ``affine_hash_scan`` and ``dfa_compose_scan`` (their
   Pallas kernel is ``_pallas_scan_tuple``; here ``csrc/scan.cu``);
 * the fused half, :func:`fused_scan` over a list of independent groups
   built by :func:`affine_group`, :func:`add_group` and :func:`dfa_group`
-  (its Pallas kernel is ``_fused_call``; here ``csrc/fused.cu``).
+  (its Pallas kernel is ``_fused_call``; here ``csrc/fused.cu``);
+* the chain half, :func:`chain_scan` over ordered passes whose groups tap
+  earlier passes' streams (:class:`Tap`, :func:`chain_group`,
+  :func:`segmax_group`, :func:`copy_group`, :func:`chain_pass`; its Pallas
+  kernel is ``_chain_call``; here ``csrc/chain.cu``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel or raises;
 on a CPU tensor it runs the plain PyTorch version beside it, which follows
 the Hillis–Steele shift schedule of the JAX ops (``_affine_op``,
-``_add_op``, ``_dfa_op``).  Every schedule gives the same int32 result by
-integer associativity, so the two agree bit for bit.
+``_add_op``, ``_dfa_op``, ``_segmax_op``).  Every schedule gives the same
+int32 result by integer associativity, so the two agree bit for bit.
 
-``TEXTBLAST_FUSED=off`` selects the staged *schedule* (callers gate on
-:func:`fused_scan_ok`), as in the JAX package; it never sends a CUDA
-tensor to a plain version.
+The switches select the JAX package's *schedules*, never a plain version
+on the card: ``TEXTBLAST_DEPFUSE=off`` the fused schedule (callers gate on
+:func:`chain_scan_ok`), ``TEXTBLAST_FUSED=off`` the staged one (it turns
+the chain off too, as in the JAX package).
 
 ``LAUNCHES`` counts kernel launches per kernel; only a launch on the card
 adds to it.
@@ -27,18 +33,30 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .device import shift_scan_tuple
 
 __all__ = [
+    "CHAIN_SITE_LAUNCHES",
     "LAUNCHES",
+    "PREPS",
+    "Tap",
     "add_group",
     "affine_group",
     "affine_hash_scan",
     "affine_hash_scan_plain",
+    "chain_group",
+    "chain_pass",
+    "chain_prep",
+    "chain_probe_program",
+    "chain_scan",
+    "chain_scan_ok",
+    "chain_scan_plain",
+    "copy_group",
+    "depfuse_enabled",
     "dfa_compose_scan",
     "dfa_compose_scan_plain",
     "dfa_group",
@@ -47,10 +65,14 @@ __all__ = [
     "fused_scan",
     "fused_scan_ok",
     "fused_scan_plain",
+    "segmax_group",
 ]
 
 #: Kernel launches on the card, by kernel name.
-LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0, "fused_scan": 0}
+LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0, "fused_scan": 0, "chain_scan": 0}
+#: The ``chain_scan`` launches of LAUNCHES by call site (the ``site`` its
+#: caller names).
+CHAIN_SITE_LAUNCHES: Dict[str, int] = {}
 
 #: The JAX fused kernel's lane cap (``pallas_scan._FUSED_MAX_LANES``), kept
 #: so that every bucket takes the JAX package's schedule.
@@ -85,6 +107,18 @@ def _dfa_op(n_states: int):
         return (out,)
 
     return op
+
+
+#: Identity of the segmented-max value stream: max(_I32_MIN, x) == x.
+_I32_MIN = -(2**31)
+
+
+def _segmax_op(xs, ys):
+    # Segmented running max over (value, reset) pairs (pallas_scan._segmax_op):
+    # a signed max, restarted where the later element resets.
+    av, ar = xs
+    bv, br = ys
+    return torch.where(br != 0, bv, torch.maximum(av, bv)), ar | br
 
 
 def dfa_ident(n_states: int) -> int:
@@ -222,12 +256,14 @@ def dfa_group(fns: torch.Tensor, n_states: int, emit: str = "scan") -> dict:
 
 def _group_spec(g: dict):
     """``(op, identities, n_operands, emitted stream indices, emit_last)``
-    of one group (``pallas_scan._group_spec`` for the kinds the fused scan
-    takes; segmax and copy groups belong to ``chain_scan``, not ported)."""
+    of one group (``pallas_scan._group_spec``).  ``n_operands`` counts the
+    streams the op runs over: for a chain group with a ``prep`` it is
+    ``g["n_ops"]`` (what the prep returns), not the dep count.  A copy
+    group has no op (``None``): it stores its operands as they are."""
     kind = g["kind"]
-    n_in = len(g["xs"])
+    n_in = g.get("n_ops", len(g["xs"]))
     emit = g.get("emit", "scan")
-    if emit not in ("scan", "last"):
+    if emit not in ("scan", "last", "none"):
         raise ValueError(f"unknown emit mode {emit!r}")
     emit_last = emit == "last"
     if kind == "affine":
@@ -237,9 +273,17 @@ def _group_spec(g: dict):
     if kind == "dfa":
         n_states = g["n_states"]
         return _dfa_op(n_states), (dfa_ident(n_states),), 1, (0,), emit_last
-    if kind in ("segmax", "copy"):
-        raise ValueError(f"{kind} groups belong to chain_scan, which is not ported")
-    raise ValueError(f"unknown fused group kind {kind!r}")
+    if kind == "segmax":
+        return _segmax_op, (_I32_MIN, 0), 2, (0,), emit_last
+    if kind == "copy":
+        if emit_last:
+            raise ValueError("copy groups cannot emit='last'")
+        return None, (0,) * n_in, n_in, tuple(range(n_in)), False
+    raise ValueError(f"unknown group kind {kind!r}")
+
+
+#: Group kinds by their code in csrc/fused.cu and csrc/chain.cu.
+_KINDS = {"affine": 0, "add": 1, "dfa": 2}
 
 
 def _regroup(groups: Sequence[dict], flat: Sequence[torch.Tensor]):
@@ -264,12 +308,17 @@ def fused_scan_ok(b: int, length: int) -> bool:
     (16384), so each bucket takes the JAX schedule: fused at
     512/2048/8192, staged at 32768/65536.  The TPU tiling rules
     (``b % 8``, ``length % 128``) are dropped: the CUDA kernel masks
-    ragged edges.
-
-    The port has no ``chain_scan`` yet, so it runs the JAX package's
-    schedule under ``TEXTBLAST_DEPFUSE=off`` whatever that variable says."""
+    ragged edges."""
     del b  # any row count works
     return fused_enabled() and length <= FUSED_MAX_LANES
+
+
+def _fused_spec(g: dict):
+    """:func:`_group_spec` for the kinds and emit modes the fused kernel
+    takes (``csrc/fused.cu``): affine, add and dfa; scan or last."""
+    if g["kind"] not in _KINDS or g.get("emit", "scan") not in ("scan", "last"):
+        raise ValueError(f"fused_scan takes affine/add/dfa groups that emit scan or last, got {g['kind']!r}")
+    return _group_spec(g)
 
 
 def fused_scan_plain(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
@@ -277,7 +326,7 @@ def fused_scan_plain(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
     the last column taken for ``emit="last"``."""
     out = []
     for g in groups:
-        op, identities, _, emit_idx, emit_last = _group_spec(g)
+        op, identities, _, emit_idx, emit_last = _fused_spec(g)
         xs = tuple(x.to(torch.int32) for x in g["xs"])
         scanned = shift_scan_tuple(op, identities, xs)
         if emit_last and xs[0].shape[1] == 0:  # an empty row's carry is the identity
@@ -287,9 +336,6 @@ def fused_scan_plain(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
             scanned = tuple(x[:, -1:] for x in scanned)
         out.append(tuple(scanned[i] for i in emit_idx))
     return out
-
-
-_KINDS = {"affine": 0, "add": 1, "dfa": 2}
 
 
 def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
@@ -308,7 +354,7 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
         return fused_scan_plain(groups)
     if dev.type != "cuda":
         raise ValueError(f"fused_scan: unsupported device {dev}")
-    specs = [_group_spec(g) for g in groups]
+    specs = [_fused_spec(g) for g in groups]
     xs = tuple(x for g in groups for x in g["xs"])
     n_out = sum(len(s[3]) for s in specs)
     if len(groups) > FUSED_MAX_GROUPS:
@@ -352,3 +398,423 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
     check(err, "fused_scan")
     LAUNCHES["fused_scan"] += 1
     return _regroup(groups, outs)
+
+
+# --- dependency-chained multi-pass scan ----------------------------------------
+#
+# A chain is an ordered list of passes; a pass's groups read external [B, L]
+# operands and Taps of earlier passes' emitted streams, and one launch walks
+# every pass (pallas_scan.py:689-718).  Streams are stored in natural lane
+# order.  A reverse pass walks the row back to front and writes its streams
+# in natural order, which is the staged rev(scan(rev(x))).  Tap(pass_idx,
+# out_idx, shift, fill) names the out_idx-th emitted stream of an earlier
+# pass (flattened over that pass's groups, every emit mode counted);
+# shift=1 reads the previous walk position (lane i-1 forward, i+1 in a
+# reverse pass) with ``fill`` at walk position 0.  An elementwise ``prep``
+# maps a group's loaded deps to the op's ``n_ops`` operands.  emit="none"
+# streams are tap-only: the kernel keeps them in a workspace and the result
+# omits them.
+
+
+class Tap(NamedTuple):
+    """Reference to an earlier chain pass's emitted stream (see above)."""
+
+    pass_idx: int
+    out_idx: int
+    shift: int = 0
+    fill: int = 0
+
+
+def chain_group(
+    kind: str,
+    deps: Sequence,
+    prep: Optional[Callable] = None,
+    n_ops: Optional[int] = None,
+    emit: str = "scan",
+    n_states: Optional[int] = None,
+) -> dict:
+    """A chain-pass scan group.  ``deps`` mixes ``[B, L]`` tensors (external
+    operands) and :class:`Tap` references; ``prep`` (elementwise) maps the
+    loaded deps to the op's ``n_ops`` operand streams; without it the deps
+    are the operands."""
+    g = {"kind": kind, "xs": tuple(deps), "emit": emit}
+    if n_states is not None:
+        g["n_states"] = n_states
+    if prep is not None:
+        if n_ops is None:
+            raise ValueError("chain_group with prep= requires n_ops=")
+        g["prep"] = prep
+        g["n_ops"] = n_ops
+    return g
+
+
+def segmax_group(v, r, emit: str = "scan") -> dict:
+    """Segmented running-max group over (value, reset)."""
+    return {"kind": "segmax", "xs": (v, r), "emit": emit}
+
+
+def copy_group(vals: Sequence, emit: str = "none") -> dict:
+    """Elementwise materialization group (no scan): stages streams so that
+    later passes can tap them."""
+    return {"kind": "copy", "xs": tuple(vals), "emit": emit}
+
+
+def chain_pass(groups: Sequence[dict], reverse: bool = False) -> dict:
+    """One pass of a :func:`chain_scan` program."""
+    return {"groups": list(groups), "reverse": bool(reverse)}
+
+
+# --- preps: each has an id that selects its __device__ twin in chain.cu -------
+
+#: name -> (id, deps, operands) of every prep the kernel evaluates.  The
+#: same table is spelled in ``csrc/chain.cu`` (struct ``Prep*``, ``ID``,
+#: ``N_DEPS``, ``N_OPS``); the functions are the plain versions, registered
+#: with :func:`chain_prep` (the sites' preps live in ``ops/stats.py``).
+PREPS: Dict[str, Tuple[int, int, int]] = {
+    "structure_sym": (1, 4, 2),
+    "structure_agg": (2, 11, 3),
+    "structure_hash": (3, 10, 3),
+    "structure_copy": (4, 8, 2),
+    "structure_vend": (5, 4, 1),
+    "line_flags": (6, 7, 2),
+    "nl_run_total": (7, 2, 2),
+    "para_hash": (8, 7, 2),
+    "para_bytes": (9, 7, 2),
+    "sentence_hst": (10, 4, 2),
+    "sentence_cnt": (11, 11, 2),
+    "sentence_first": (12, 2, 1),
+    "reset_value": (13, 2, 2),
+    "sum2": (14, 2, 1),
+    "over_50": (15, 1, 1),
+    "low_bit": (16, 1, 1),
+    "twice": (17, 1, 1),
+    "state_is_one": (18, 1, 1),
+}
+
+_PREP_FNS: Dict[str, Callable] = {}
+
+
+def chain_prep(fn: Callable) -> Callable:
+    """Register ``fn`` as the plain version of the prep named ``fn.__name__``
+    in :data:`PREPS`."""
+    name = fn.__name__
+    if name not in PREPS:
+        raise ValueError(f"prep {name!r} has no id in PREPS (and no twin in csrc/chain.cu)")
+    if _PREP_FNS.get(name, fn) is not fn:
+        raise ValueError(f"prep {name!r} is registered twice")
+    _PREP_FNS[name] = fn
+    return fn
+
+
+def _prep_id(prep: Callable, n_deps: int, n_ops: int) -> int:
+    """The kernel's id of a registered prep; raises on any other callable or
+    on a group whose dep or operand count differs from the prep's."""
+    name = getattr(prep, "__name__", None)
+    if name is None or _PREP_FNS.get(name) is not prep:
+        raise ValueError(f"chain_scan: prep {prep!r} has no kernel id (register it with chain_prep)")
+    pid, want_deps, want_ops = PREPS[name]
+    if (n_deps, n_ops) != (want_deps, want_ops):
+        raise ValueError(
+            f"chain_scan: prep {name} takes {want_deps} deps and returns {want_ops} "
+            f"operands, the group has {n_deps} and {n_ops}"
+        )
+    return pid
+
+
+@chain_prep
+def reset_value(seg, r):
+    # The probe's segment total at resets (pallas_scan.py:1015).
+    return torch.where(r != 0, seg, 0), r
+
+
+@chain_prep
+def sum2(a, b):
+    return (a + b,)
+
+
+@chain_prep
+def over_50(a):
+    return (a > 50,)
+
+
+@chain_prep
+def low_bit(a):
+    return (a & 1,)
+
+
+@chain_prep
+def twice(a):
+    return (a * 2,)
+
+
+@chain_prep
+def state_is_one(pk):
+    # A packed DFA stream's state (nibble 0) equals 1.
+    return ((pk & 15) == 1,)
+
+
+def chain_probe_program(vals: torch.Tensor, reset: torch.Tensor) -> List[dict]:
+    """The JAX package's chain probe program (pallas_scan.py:1008-1039): a
+    scratch seg-add, a reverse segmax over its totals, and a forward copy
+    with a shift tap beside an ``emit="last"`` count."""
+    m = torch.where(reset != 0, 0, 1).to(torch.int32).contiguous()
+    return [
+        chain_pass([{"kind": "affine", "xs": (m, vals), "emit": "none"}]),
+        chain_pass(
+            [chain_group("segmax", (Tap(0, 0), reset), prep=reset_value, n_ops=2)],
+            reverse=True,
+        ),
+        chain_pass(
+            [
+                chain_group("copy", (Tap(1, 0), Tap(0, 0, shift=1, fill=0)),
+                            prep=sum2, n_ops=1, emit="scan"),
+                chain_group("add", (Tap(1, 0),), prep=over_50, n_ops=1, emit="last"),
+            ]
+        ),
+    ]
+
+
+# --- the plan -------------------------------------------------------------------
+
+
+def _chain_plan(passes: Sequence[dict]):
+    """Resolve a chain program (``pallas_scan._chain_plan``): dedup external
+    tensors by object identity, give every emitted stream an output slot
+    (emit "scan" or "last") or a workspace slot (emit "none"), and check the
+    taps.  Returns ``(plan, ext, out_modes, n_scratch, layout)``: per pass
+    ``{"reverse", "groups": [{"spec", "g", "deps", "streams"}]}`` with deps
+    ``("e", ext index)`` or ``("s", storage, shift, fill)`` and storage
+    ``("out", i)`` or ``("scratch", j)``; ``layout`` the output slots per
+    pass and group, empty for emit="none" groups."""
+    ext: List[torch.Tensor] = []
+    ext_index: Dict[int, int] = {}
+    stream_table: List[List[Tuple[Tuple[str, int], str]]] = []
+    out_modes: List[str] = []
+    n_scratch = 0
+    plan, layout = [], []
+    for p_idx, pss in enumerate(passes):
+        groups_plan, pass_streams, pass_layout = [], [], []
+        for g in pss["groups"]:
+            spec = _group_spec(g)
+            emit = g.get("emit", "scan")
+            deps = []
+            for d in g["xs"]:
+                if isinstance(d, Tap):
+                    if not 0 <= d.pass_idx < p_idx:
+                        raise ValueError(
+                            f"Tap(pass_idx={d.pass_idx}) must reference an "
+                            f"earlier pass (current pass {p_idx})"
+                        )
+                    if d.shift not in (0, 1):
+                        raise ValueError("Tap.shift must be 0 or 1")
+                    if not 0 <= d.out_idx < len(stream_table[d.pass_idx]):
+                        raise ValueError(f"Tap(out_idx={d.out_idx}) past pass {d.pass_idx}'s streams")
+                    storage, s_emit = stream_table[d.pass_idx][d.out_idx]
+                    if s_emit == "last":
+                        raise ValueError("cannot tap an emit='last' stream")
+                    deps.append(("s", storage, d.shift, int(d.fill)))
+                else:
+                    key = id(d)
+                    if key not in ext_index:
+                        ext_index[key] = len(ext)
+                        ext.append(d)
+                    deps.append(("e", ext_index[key]))
+            streams, g_layout = [], []
+            for _ in spec[3]:
+                if emit == "none":
+                    storage = ("scratch", n_scratch)
+                    n_scratch += 1
+                else:
+                    storage = ("out", len(out_modes))
+                    out_modes.append(emit)
+                    g_layout.append(storage[1])
+                streams.append(storage)
+                pass_streams.append((storage, emit))
+            groups_plan.append({"spec": spec, "g": g, "deps": deps, "streams": streams})
+            pass_layout.append(g_layout)
+        stream_table.append(pass_streams)
+        plan.append({"reverse": bool(pss.get("reverse", False)), "groups": groups_plan})
+        layout.append(pass_layout)
+    if not ext:
+        raise ValueError("chain_scan needs at least one external operand")
+    return plan, ext, out_modes, n_scratch, layout
+
+
+def depfuse_enabled() -> bool:
+    """``TEXTBLAST_DEPFUSE=off`` (or ``0``/``false``) selects the fused
+    schedule instead of the chain; re-read per call so tests and benches
+    can toggle it."""
+    return os.environ.get("TEXTBLAST_DEPFUSE", "").lower() not in ("off", "0", "false")
+
+
+def chain_scan_ok(b: int, length: int) -> bool:
+    """Whether a caller takes the chain schedule for a ``[b, length]``
+    batch: ``TEXTBLAST_DEPFUSE`` plus :func:`fused_scan_ok` (so
+    ``TEXTBLAST_FUSED=off`` and the 16384-lane cap apply), as in the JAX
+    package."""
+    return depfuse_enabled() and fused_scan_ok(b, length)
+
+
+def _flip(x: torch.Tensor) -> torch.Tensor:
+    return torch.flip(x, dims=(1,))
+
+
+def chain_scan_plain(passes: Sequence[dict]) -> List[List[Tuple[torch.Tensor, ...]]]:
+    """Plain PyTorch chain: the plan evaluated pass by pass on whole
+    tensors.  A forward pass is the shift scan, a reverse pass
+    ``flip(scan(flip(x)))``; a shift tap reads lane ``i-1`` (forward) or
+    ``i+1`` (reverse) with ``fill`` at walk position 0; the prep runs on
+    natural-order tensors (it is elementwise, so it commutes with the
+    flip); ``emit="last"`` takes the carry at the end of the walk.  Takes
+    any elementwise prep, registered or not."""
+    plan, _, _, _, _ = _chain_plan(passes)
+    emitted: List[List[torch.Tensor]] = []
+    results = []
+    for pss in plan:
+        reverse = pss["reverse"]
+        pass_streams, pass_res = [], []
+        for gp in pss["groups"]:
+            g = gp["g"]
+            op, identities, _, emit_idx, emit_last = gp["spec"]
+            deps = []
+            for d, x in zip(gp["deps"], g["xs"]):
+                if d[0] == "s":
+                    tap, x = x, emitted[x.pass_idx][x.out_idx]
+                    if tap.shift:
+                        fill = torch.full_like(x[:, :1], tap.fill)
+                        x = (torch.cat([x[:, 1:], fill], 1) if reverse
+                             else torch.cat([fill, x[:, :-1]], 1))
+                deps.append(x.to(torch.int32))
+            prep = g.get("prep")
+            ops = tuple(prep(*deps)) if prep is not None else tuple(deps)
+            ops = tuple(o.to(torch.int32) for o in ops)
+            ref = deps[0]
+            if op is not None:
+                if reverse:
+                    scanned = tuple(_flip(x) for x in
+                                    shift_scan_tuple(op, identities, tuple(_flip(o) for o in ops)))
+                else:
+                    scanned = shift_scan_tuple(op, identities, ops)
+            else:
+                scanned = ops
+            if emit_last:
+                rows, length = ref.shape
+                if length == 0:
+                    scanned = tuple(torch.full((rows, 1), v, dtype=torch.int32, device=ref.device)
+                                    for v in identities)
+                else:
+                    col = slice(0, 1) if reverse else slice(length - 1, length)
+                    scanned = tuple(x[:, col] for x in scanned)
+            out = tuple(scanned[i] for i in emit_idx)
+            pass_streams.extend(out)
+            pass_res.append(out if g.get("emit", "scan") != "none" else ())
+        emitted.append(pass_streams)
+        results.append(pass_res)
+    return results
+
+
+#: Kind codes of csrc/chain.cu (affine/add/dfa as in fused.cu).
+_CHAIN_KINDS = {"affine": 0, "add": 1, "dfa": 2, "segmax": 3, "copy": 4}
+_EMITS = {"scan": 0, "last": 1, "none": 2}
+
+#: Limits of ``csrc/chain.cu``'s by-value parameter block and its shared
+#: memory staging (operands per group).
+CHAIN_MAX_PASSES = 8
+CHAIN_MAX_GROUPS = 16
+CHAIN_MAX_DEPS = 64
+CHAIN_MAX_EXT = 16
+CHAIN_MAX_SLOTS = 32
+CHAIN_MAX_OPS = 5
+
+
+def _chain_code(plan, n_out: int) -> List[int]:
+    """The plan as the flat int program ``tb_chain_scan`` parses: per pass
+    ``reverse, n_groups``; per group ``kind, prep id, emit, n_states,
+    n_deps, n_ops, n_emit``, then per dep ``tap, index, shift, fill`` (index:
+    an external operand, or a stream slot) and the emitted streams' slots.
+    Slots are the outputs, then the workspace streams (``n_out + j``)."""
+
+    def slot(storage):
+        return storage[1] if storage[0] == "out" else n_out + storage[1]
+
+    code = [len(plan)]
+    for pss in plan:
+        code += [int(pss["reverse"]), len(pss["groups"])]
+        for gp in pss["groups"]:
+            g = gp["g"]
+            kind = g["kind"]
+            _, _, n_ops, _, _ = gp["spec"]
+            n_deps = len(gp["deps"])
+            prep = g.get("prep")
+            pid = _prep_id(prep, n_deps, n_ops) if prep is not None else 0
+            if prep is None and n_ops != n_deps:
+                raise ValueError("chain_scan: a group without a prep has one operand per dep")
+            if not 1 <= n_ops <= CHAIN_MAX_OPS:
+                raise ValueError(f"chain_scan: {n_ops} operands in a group, the kernel takes 1..{CHAIN_MAX_OPS}")
+            if kind == "affine" and n_ops < 2:
+                raise ValueError("chain_scan: an affine group needs a multiplier and an accumulator")
+            n_states = g.get("n_states", 0) if kind == "dfa" else 0
+            if kind == "dfa" and not 1 <= n_states <= 8:
+                raise ValueError("chain_scan: the kernel takes 1..8 DFA states")
+            code += [_CHAIN_KINDS[kind], pid, _EMITS[g.get("emit", "scan")], n_states,
+                     n_deps, n_ops, len(gp["streams"])]
+            for d in gp["deps"]:
+                if d[0] == "e":
+                    code += [0, d[1], 0, 0]
+                else:
+                    code += [1, slot(d[1]), d[2], d[3]]
+            code += [slot(s) for s in gp["streams"]]
+    return code
+
+
+def chain_scan(passes: Sequence[dict], site: Optional[str] = None
+               ) -> List[List[Tuple[torch.Tensor, ...]]]:
+    """Evaluate a dependency-chained multi-pass program in ONE kernel
+    launch.  Returns, per pass, one tuple of int32 streams per group
+    (``[B, L]`` for emit="scan", ``[B, 1]`` for emit="last", empty for
+    emit="none").  ``site`` names the caller in
+    :data:`CHAIN_SITE_LAUNCHES`.
+
+    Every external operand is a contiguous int32 ``[B, L]`` tensor on one
+    device, every prep is registered (:func:`chain_prep`), and the program
+    fits the kernel's limits (``CHAIN_MAX_*``).  Callers gate on
+    :func:`chain_scan_ok` first."""
+    passes = list(passes)
+    plan, ext, out_modes, n_scratch, layout = _chain_plan(passes)
+    dev = ext[0].device
+    if dev.type == "cpu":
+        return chain_scan_plain(passes)
+    if dev.type != "cuda":
+        raise ValueError(f"chain_scan: unsupported device {dev}")
+    _check("chain_scan", ext)
+    n_groups = sum(len(p["groups"]) for p in plan)
+    n_deps = sum(len(gp["deps"]) for p in plan for gp in p["groups"])
+    n_slots = len(out_modes) + n_scratch
+    limits = ((len(plan), CHAIN_MAX_PASSES, "passes"), (n_groups, CHAIN_MAX_GROUPS, "groups"),
+              (n_deps, CHAIN_MAX_DEPS, "deps"), (len(ext), CHAIN_MAX_EXT, "external operands"),
+              (n_slots, CHAIN_MAX_SLOTS, "streams"))
+    for n, most, what in limits:
+        if n > most:
+            raise ValueError(f"chain_scan: {n} {what}, the kernel takes {most}")
+    code = _chain_code(plan, len(out_modes))
+    from ..kernels.build import check, load
+
+    rows, length = ext[0].shape
+    outs = [torch.empty((rows, 1) if m == "last" else (rows, length), dtype=torch.int32, device=dev)
+            for m in out_modes]
+    scratch = (torch.empty((n_scratch, rows, length), dtype=torch.int32, device=dev)
+               if n_scratch else None)
+    slots = [o.data_ptr() for o in outs] + [scratch[j].data_ptr() for j in range(n_scratch)]
+    if rows:
+        lib = load("chain")
+        with torch.cuda.device(dev):
+            err = lib.tb_chain_scan(
+                (ctypes.c_int * len(code))(*code), len(code),
+                (ctypes.c_void_p * len(ext))(*(x.data_ptr() for x in ext)), len(ext),
+                (ctypes.c_void_p * len(slots))(*slots), len(slots),
+                rows, length, _stream(ext[0]),
+            )
+        check(err, "chain_scan")
+        LAUNCHES["chain_scan"] += 1
+        CHAIN_SITE_LAUNCHES[site] = CHAIN_SITE_LAUNCHES.get(site, 0) + 1
+    return [[tuple(outs[s] for s in g_slots) for g_slots in p_layout] for p_layout in layout]

@@ -1,13 +1,14 @@
-"""Row-wise lexicographic sort of int32 key pairs.
+"""Row-wise lexicographic sort of int32 key pairs and key triples.
 
 The port's counterpart of the JAX package's ``textblaster_tpu/ops/
-pallas_sort.py`` ``sort2`` (its Pallas kernel is ``_pallas_sort_n`` +
-``_bitonic_kernel``).  On a CUDA tensor :func:`sort2` launches the
-hand-written bitonic network of ``csrc/sort.cu`` or raises; on a CPU tensor
-it runs :func:`sort2_plain`, the int64-packed sort of the JAX package's
-off-TPU path (``pallas_sort.py:327-333``).
+pallas_sort.py`` ``sort2`` and ``sort3`` (their Pallas kernel is
+``_pallas_sort_n`` + ``_bitonic_kernel``).  On a CUDA tensor each launches
+the hand-written bitonic network of ``csrc/sort.cu`` or raises; on a CPU
+tensor :func:`sort2` runs :func:`sort2_plain`, the int64-packed sort of the
+JAX package's off-TPU path (``pallas_sort.py:327-333``), and :func:`sort3`
+runs :func:`sort3_plain`, three stable sorts.
 
-``sort3`` has no caller on the port's path yet and is not ported.
+``sort3`` has no caller on the port's path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,14 +17,16 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "sort2", "sort2_plain", "SMEM_WIDTH"]
+__all__ = ["LAUNCHES", "sort2", "sort2_plain", "sort3", "sort3_plain", "SMEM_WIDTH", "SMEM_WIDTH3"]
 
-#: Kernel launches on the card (one per :func:`sort2` call on CUDA).
-LAUNCHES: Dict[str, int] = {"sort2": 0}
+#: Kernel launches on the card (one per call on CUDA).
+LAUNCHES: Dict[str, int] = {"sort2": 0, "sort3": 0}
 
-#: Widest padded row the kernel sorts in one CTA's shared memory; wider rows
-#: take its global-memory passes and need a packed scratch buffer.
+#: Widest padded row the kernel sorts in one CTA's shared memory, per key
+#: count; wider rows take its global-memory passes and need a packed scratch
+#: buffer (8 bytes an element for two keys, 16 for three).
 SMEM_WIDTH = 16384
+SMEM_WIDTH3 = 8192
 
 
 def sort2_plain(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -32,6 +35,22 @@ def sort2_plain(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch
     z = (k1.to(torch.int64) << 32) | k2.to(torch.int64)
     s = torch.sort(z, dim=1).values
     return (s >> 32).to(torch.int32), (s & 0xFFFFFFFF).to(torch.int32)
+
+
+def _check(name: str, ks) -> None:
+    k1 = ks[0]
+    for t in ks:
+        if t.device != k1.device:
+            raise ValueError(f"{name}: operands on different devices")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if t.dim() != 2 or t.shape != k1.shape:
+            raise ValueError(f"{name}: expected equal [rows, m] operands")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    rows, m = k1.shape
+    if rows > 65535 or m > 2**30:
+        raise ValueError(f"{name}: shape {tuple(k1.shape)} not supported")
 
 
 def sort2(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,18 +67,8 @@ def sort2(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
         return sort2_plain(k1, k2)
     if k1.device.type != "cuda":
         raise ValueError(f"sort2: unsupported device {k1.device}")
-    for t in (k1, k2):
-        if t.device != k1.device:
-            raise ValueError("sort2: operands on different devices")
-        if t.dtype != torch.int32:
-            raise TypeError(f"sort2: expected int32, got {t.dtype}")
-        if t.dim() != 2 or t.shape != k1.shape:
-            raise ValueError("sort2: expected equal [rows, m] operands")
-        if not t.is_contiguous():
-            raise ValueError("sort2: operands must be contiguous")
+    _check("sort2", (k1, k2))
     rows, m = k1.shape
-    if rows > 65535 or m > 2**30:
-        raise ValueError(f"sort2: shape {tuple(k1.shape)} not supported")
     o1, o2 = torch.empty_like(k1), torch.empty_like(k2)
     if rows == 0 or m == 0:
         return o1, o2
@@ -87,3 +96,52 @@ def sort2(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     check(err, "sort2")
     LAUNCHES["sort2"] += 1
     return o1, o2
+
+
+def sort3_plain(
+    k1: torch.Tensor, k2: torch.Tensor, k3: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort each row by ``(k1, k2, k3)`` ascending, signed: three stable
+    sorts, from the last key to the first."""
+    keys = (k1.to(torch.int32), k2.to(torch.int32), k3.to(torch.int32))
+    perm = torch.argsort(keys[2], dim=1, stable=True)
+    for k in (keys[1], keys[0]):
+        perm = torch.gather(perm, 1, torch.argsort(torch.gather(k, 1, perm), dim=1, stable=True))
+    return tuple(torch.gather(k, 1, perm) for k in keys)
+
+
+def sort3(
+    k1: torch.Tensor, k2: torch.Tensor, k3: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row sort by ``(k1, k2, k3)``, lexicographic and signed (the JAX
+    ``sort3``; ``lax.sort(num_keys=3)``).  Any int32 keys and any width:
+    the kernel pads a row to the next power of two with ``INT32_MAX``
+    triples, which sort last, and writes back only the real columns."""
+    if k1.device.type == "cpu":
+        return sort3_plain(k1, k2, k3)
+    if k1.device.type != "cuda":
+        raise ValueError(f"sort3: unsupported device {k1.device}")
+    _check("sort3", (k1, k2, k3))
+    rows, m = k1.shape
+    outs = tuple(torch.empty_like(k1) for _ in range(3))
+    if rows == 0 or m == 0:
+        return outs
+    mp = max(2, 1 << (m - 1).bit_length())
+    scratch = (
+        torch.empty((rows, mp, 2), dtype=torch.int64, device=k1.device)
+        if mp > SMEM_WIDTH3
+        else None
+    )
+    from ..kernels.build import check, load
+
+    lib = load("sort")
+    with torch.cuda.device(k1.device):
+        err = lib.tb_sort3(
+            k1.data_ptr(), k2.data_ptr(), k3.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            scratch.data_ptr() if scratch is not None else None,
+            rows, m, mp, torch.cuda.current_stream(k1.device).cuda_stream,
+        )
+    check(err, "sort3")
+    LAUNCHES["sort3"] += 1
+    return outs

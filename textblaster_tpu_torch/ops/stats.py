@@ -1,23 +1,28 @@
 """Per-filter statistic functions over packed codepoint batches.
 
-The port's counterpart of ``textblaster_tpu/ops/stats.py`` under two of
-the JAX package's schedules (``chain_scan`` is not ported, so the branches
-taken when ``chain_scan_ok`` is false):
+The port's counterpart of ``textblaster_tpu/ops/stats.py`` under the JAX
+package's three schedules:
 
-* **fused** (the default): where ``fused_scan_ok`` holds (buckets up to
-  16384), ``structure``, ``gopher_quality_stats``, ``fineweb_stats`` and
+* **chain** (the default): where ``chain_scan_ok`` holds (buckets up to
+  16384), each of eight sites evaluates its dependent scans as the passes
+  of one :func:`~.scan.chain_scan` launch (``csrc/chain.cu``): ``structure``
+  (up to 8192 lanes), ``gopher_quality_stats``, ``gopher_rep_stats``, the
+  sorted-table run scans (:func:`_sorted_table_streams`), ``c4_stage``'s
+  split-paragraph trim, its sentence mode and its post-compaction pass, and
+  ``sentence_counts``.  ``fineweb_stats`` keeps its ``fused_scan`` launch;
+* **fused** (``TEXTBLAST_DEPFUSE=off``): where ``fused_scan_ok`` holds,
+  ``structure``, ``gopher_quality_stats``, ``fineweb_stats`` and
   ``c4_stage``'s split-paragraph trim evaluate their independent scans as
-  groups of one :func:`~.scan.fused_scan` launch (``csrc/fused.cu``), as
-  the JAX package does under ``TEXTBLAST_DEPFUSE=off``;
+  groups of one :func:`~.scan.fused_scan` launch (``csrc/fused.cu``);
 * **staged** (``TEXTBLAST_FUSED=off``, and every bucket above 16384): one
   scan at a time.
 
 Each function maps ``(cps [B, L], lengths [B])`` to per-document integer
 statistics; ratios, thresholds and reason strings are computed on the host
-in float64 from these integers (:mod:`.pipeline`).  Both schedules give the
+in float64 from these integers (:mod:`.pipeline`).  Every schedule gives the
 same integers by integer associativity.
 
-Beside the fused kernel, two hand-written CUDA kernels carry this path on
+Beside those kernels, two hand-written CUDA kernels carry this path on
 the card: the affine scan behind every staged segmented polynomial hash
 (:func:`_poly_hash_many`) and the bitonic ``sort2`` behind every duplicate
 table (:func:`_sort_runs_many`).  The staged segmented add/or/max scans
@@ -30,7 +35,7 @@ device-to-host sync each per batch.
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,10 +60,23 @@ from .device import (
     seg_scan_or,
     use_sort_tables,
     utf8_width,
+    word_base,
     word_mask,
 )
-from .dfa import citation_spans, dfa_states
-from .scan import add_group, affine_group, affine_hash_scan, fused_scan, fused_scan_ok
+from .dfa import citation_spans, dfa_packed_fns, dfa_states
+from .scan import (
+    Tap,
+    add_group,
+    affine_group,
+    affine_hash_scan,
+    chain_group,
+    chain_pass,
+    chain_prep,
+    chain_scan,
+    chain_scan_ok,
+    fused_scan,
+    fused_scan_ok,
+)
 from .sort import sort2
 
 __all__ = [
@@ -182,6 +200,124 @@ def _sum_group(values: Tuple[torch.Tensor, ...]) -> dict:
     return add_group(tuple(_i32(v) for v in values), emit="last")
 
 
+def _pattern_hash_group(src: torch.Tensor, mask: torch.Tensor) -> dict:
+    """Chain-group twin of :func:`_pattern_union_starts`' candidate prefix
+    hash (the same operands as its ``_poly_hash`` call), so that the
+    candidate pass rides another site's launch through ``h_inc``."""
+    first = _first_col(mask)
+    return affine_group(_i32(torch.where(first, 0, 31)), (_i32(torch.where(mask, src, 0)),))
+
+
+# --- chain preps --------------------------------------------------------------
+# Elementwise maps from a chain group's loaded deps to its operands: the JAX
+# package's prep closures, named.  Each is the plain version of a prep with
+# an id in scan.PREPS and a __device__ twin in csrc/chain.cu.  Bool results
+# become 0/1 operands.
+
+
+def _derive(held, hs, shh, e, w, br, she, shw):
+    """in_unit and unit_start from the held scans (the staged formulas of
+    :func:`structure`; JAX stats.py:343)."""
+    iw = torch.where(e != 0, held > 0, w != 0)
+    bs = ~iw & (br != 0)
+    sym = bs | ((e != 0) & ~iw & (hs > 0))
+    iu = iw | sym
+    piw = torch.where(she != 0, shh > 0, shw != 0)
+    us = (iw & ~piw) | bs
+    return iu, us
+
+
+@chain_prep
+def structure_sym(held, e, w, br):
+    iw = torch.where(e != 0, held > 0, w != 0)
+    return e, ~iw & (br != 0)
+
+
+@chain_prep
+def structure_agg(held, hs, shh, e, w, br, she, shw, wd, np_, al):
+    iu, us = _derive(held, hs, shh, e, w, br, she, shw)
+    acc1 = iu.to(_I32) * (1 << 17) + torch.where(iu, wd, 0)
+    acc2 = torch.where(iu, np_, 0) * (1 << 16) + torch.where(iu, al, 0)
+    return torch.where(us, 0, 1), acc1, acc2
+
+
+@chain_prep
+def structure_hash(held, hs, shh, e, w, br, she, shw, c, lo):
+    iu, us = _derive(held, hs, shh, e, w, br, she, shw)
+    m = torch.where(us, 0, torch.where(iu, 31, 1))
+    return m, torch.where(iu, c, 0), torch.where(iu, lo, 0)
+
+
+@chain_prep
+def structure_copy(held, hs, shh, e, w, br, she, shw):
+    return _derive(held, hs, shh, e, w, br, she, shw)
+
+
+@chain_prep
+def structure_vend(iu, iu_next, us_next, pb):
+    # A valid unit's end, read in a reverse pass ("next" = walk-previous).
+    ue = (iu != 0) & ((iu_next == 0) | (us_next != 0))
+    return (ue & ((pb >> 16) > 0),)
+
+
+@chain_prep
+def line_flags(lead_cnt, cnt_r, dot_run_t, nw, bul, ell, dt):
+    # Bullet-led and ellipsis-ended line flags (JAX stats.py:870).
+    leader = (nw != 0) & (lead_cnt == 1)
+    last = (nw != 0) & (cnt_r == 1)
+    return leader & (bul != 0), last & ((ell != 0) | ((dt != 0) & (dot_run_t >= 3)))
+
+
+@chain_prep
+def nl_run_total(nl_run_t, ne):
+    return torch.where(ne != 0, nl_run_t, 0), ne
+
+
+def _para_frame(rt, sh_rt, nl, sh_nl, it, t0f):
+    sep = (nl != 0) & (rt >= 2)
+    sh_sep = (sh_nl != 0) & (sh_rt >= 2)
+    p_c = (it != 0) & ~sep
+    return p_c, p_c & (sh_sep | (t0f != 0))
+
+
+@chain_prep
+def para_hash(rt, sh_rt, nl, sh_nl, it, t0f, c):
+    p_c, p_s = _para_frame(rt, sh_rt, nl, sh_nl, it, t0f)
+    return torch.where(p_s, 0, torch.where(p_c, 31, 1)), torch.where(p_c, c, 0)
+
+
+@chain_prep
+def para_bytes(rt, sh_rt, nl, sh_nl, it, t0f, w):
+    p_c, p_s = _para_frame(rt, sh_rt, nl, sh_nl, it, t0f)
+    return torch.where(p_s, 0, 1), torch.where(p_c, w, 0)
+
+
+@chain_prep
+def sentence_hst(pk, pk_prev, t, s):
+    # Sterm-run counter operands: restart at a terminator run's start.
+    return torch.where((t != 0) & ((pk_prev & 15) != 1), 0, 1), torch.where((pk & 15) > 0, s, 0)
+
+
+@chain_prep
+def sentence_cnt(pk, pk_prev, hst_prev, t, shd, lo, al, shp, mk, ex, nw):
+    # sentence_boundaries' rule from packed-state taps, then the segment's
+    # non-ws counter operands.
+    st = pk & 15
+    pst = pk_prev & 15
+    fresh = (t != 0) & ((pst == 2) | (pst == 3))
+    cand = (mk != 0) & (pst > 0) & ((st == 0) | fresh)
+    dot_last = (shd != 0) & (pst == 1)
+    nb = ~(hst_prev > 0) & ((dot_last & (al != 0)) | (lo != 0))
+    boundary = (cand & ~nb) | ((shp != 0) & (mk != 0))
+    return torch.where(boundary | (ex != 0), 0, 1), nw
+
+
+@chain_prep
+def sentence_first(c, nw):
+    # A sentence's first non-ws char.
+    return ((nw != 0) & (c == 1),)
+
+
 def _scatter(values, idx, active, m, fill=0, op="set"):
     """Scatter per-char ``values`` at ``active`` positions into ``[B, m]``
     slots keyed by ``idx``; inactive or out-of-range positions go to a
@@ -260,6 +396,14 @@ class TextStructure(NamedTuple):
     word_idx: torch.Tensor  # [B, L] int32 at valid unit_end — word ordinal
 
 
+def _text_frame(cps: torch.Tensor, lengths: torch.Tensor):
+    """``(mask, cls)`` of a packed batch: the chars inside each row's
+    length, and their class bits (0 outside)."""
+    mask = _iota(cps.shape[1], cps.device) < lengths[:, None]
+    cls = classify(cps)
+    return mask, torch.where(mask, cls, torch.zeros_like(cls))
+
+
 def structure(
     cps: torch.Tensor, lengths: torch.Tensor, with_hashes: bool = True
 ) -> TextStructure:
@@ -267,14 +411,16 @@ def structure(
     skips the two polynomial-hash streams (the hash fields come back
     ``None``)."""
     _, length = cps.shape
-    mask = _iota(length, cps.device) < lengths[:, None]
-    cls = classify(cps)
-    cls = torch.where(mask, cls, torch.zeros_like(cls))
+    mask, cls = _text_frame(cps, lengths)
+
+    if chain_scan_ok(*cps.shape) and length <= 8192:
+        res = chain_scan(_structure_passes(cps, mask, cls, with_hashes),
+                         site="structure" if with_hashes else "structure_nohash")
+        return _structure_from_chain(cps, lengths, mask, cls, res, with_hashes)
 
     ws = (cls & WS) != 0
     punct = (cls & PUNCT) != 0
     ext = ((cls & EXTEND) != 0) & mask
-
     in_word = word_mask(cps, cls) & mask
     # Symbols: not word/ws/punct; ZWSP yields no token, bare Extend chars
     # yield no token, and an Extend run after a symbol continues its unit.
@@ -368,6 +514,80 @@ def structure(
     )
 
 
+def _structure_passes(cps, mask, cls, with_hashes: bool) -> List[dict]:
+    """The chain program of :func:`structure` (JAX stats.py:322-453): the
+    WB4 word hold scan, the symbol hold scan it feeds, the per-unit
+    aggregate and hash scans those masks gate, unit_end (a reverse pass:
+    "next" lanes are walk-previous taps) and the word cumsum.  Each
+    recurrence restates the staged branch's (a segmented OR of {0,1}
+    streams is a segmented SUM compared > 0)."""
+    ws = (cls & WS) != 0
+    punct = (cls & PUNCT) != 0
+    ext = ((cls & EXTEND) != 0) & mask
+    word_raw, _ = word_base(cps, cls)
+    ext_i = _i32(ext)
+    wm = _i32(word_raw & mask)
+    base_raw = _i32(~ws & ~punct & mask & (cps != 0x200B) & ~ext)
+    core = (
+        Tap(0, 0),  # held (WB4 word hold)
+        Tap(1, 0),  # held_sym
+        Tap(0, 0, shift=1, fill=0),  # held at the previous lane
+        ext_i,
+        wm,
+        base_raw,
+        _i32(_shift_r(ext_i)),
+        _i32(_shift_r(wm)),
+    )
+    agg = (_i32(utf8_width(cps)), _i32(~punct), _i32((cls & ALPHA) != 0))
+    p2 = [chain_group("affine", core + agg, prep=structure_agg, n_ops=3)]
+    if with_hashes:
+        p2.append(chain_group("affine", core + (_i32(cps), _i32(lowered(cps))),
+                              prep=structure_hash, n_ops=3))
+    p2.append(chain_group("copy", core, prep=structure_copy, n_ops=2))
+    s_iu = 4 if with_hashes else 2  # flat stream index of in_unit in pass 2
+    return [
+        chain_pass([affine_group(ext_i, (wm,), emit="none")]),
+        chain_pass([chain_group("affine", (Tap(0, 0), ext_i, wm, base_raw),
+                                prep=structure_sym, n_ops=2, emit="none")]),
+        chain_pass(p2),
+        chain_pass(
+            [chain_group(
+                "copy",
+                (Tap(2, s_iu), Tap(2, s_iu, shift=1, fill=0),
+                 Tap(2, s_iu + 1, shift=1, fill=0), Tap(2, 1)),
+                prep=structure_vend, n_ops=1, emit="none",
+            )],
+            reverse=True,
+        ),
+        chain_pass([chain_group("add", (Tap(3, 0),), emit="scan")]),
+    ]
+
+
+def _structure_from_chain(cps, lengths, mask, cls, res, with_hashes: bool) -> TextStructure:
+    """:class:`TextStructure` from the streams of :func:`_structure_passes`."""
+    packed_a, packed_b = res[2][0]
+    unit_hash, unit_lhash = res[2][1] if with_hashes else (None, None)
+    iu_s, us_s = res[2][-1]
+    in_unit = iu_s != 0
+    unit_end = in_unit & (~_shift_l(in_unit, False) | _shift_l(us_s != 0, False))
+    cs = res[4][0][0]
+    return TextStructure(
+        cps=cps,
+        lengths=lengths,
+        cls=cls,
+        mask=mask,
+        unit_end=unit_end,
+        unit_valid=(packed_b >> 16) > 0,
+        unit_len=packed_a >> 17,
+        unit_bytes=packed_a & ((1 << 17) - 1),
+        unit_hash=unit_hash,
+        unit_lhash=unit_lhash,
+        unit_alpha=(packed_b & ((1 << 16) - 1)) > 0,
+        n_words=cs[:, -1],
+        word_idx=cs - 1,
+    )
+
+
 def _lowered(cps: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, lowered(cps), 0).to(_I32)
 
@@ -388,17 +608,19 @@ def _to_i32(u: int) -> int:
 
 
 def _pattern_union_starts(
-    src: torch.Tensor, mask: torch.Tensor, patterns: Tuple[str, ...]
+    src: torch.Tensor, mask: torch.Tensor, patterns: Tuple[str, ...], h_inc=None
 ) -> torch.Tensor:
     """[B, L] bool: some pattern in ``patterns`` starts at each position.
 
     Rolling-hash window candidates first (one affine scan), then the exact
     shifted compare, run only when the batch has a candidate (a host ``if``
     where the JAX package has a ``lax.cond``).  Decisions always come from
-    the exact compare, so hash collisions cannot alter semantics."""
-    vals = torch.where(mask, src, 0).to(_I32)
-    first = _first_col(mask)
-    h_inc = _poly_hash(vals, torch.ones_like(mask), first)  # inclusive prefix hash
+    the exact compare, so hash collisions cannot alter semantics.  ``h_inc``
+    is the inclusive prefix hash when a caller's chain launch computed it
+    (:func:`_pattern_hash_group`)."""
+    if h_inc is None:
+        vals = torch.where(mask, src, 0).to(_I32)
+        h_inc = _poly_hash(vals, torch.ones_like(mask), _first_col(mask))
     h_exc = _shift_r(h_inc, 0)  # hash of chars [0, i)
 
     cand = torch.zeros_like(mask)
@@ -528,12 +750,45 @@ def _run_starts(s_hash: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _top_duplicate_sorted(sorted_triple) -> torch.Tensor:
+def _sorted_table_streams(tagged_triples):
+    """ONE chain launch for every per-run scan over the sorted tables (JAX
+    stats.py:759-793): run lengths for "top" jobs, the first window index
+    of each run for "dup" jobs — the staged scans inside
+    :func:`_top_duplicate_sorted` and :func:`_dup_run_info_sorted`.
+    Returns one stream per job, or ``None`` when the table shape fails the
+    chain gate (the callers then run the identical staged scans)."""
+    if not tagged_triples:
+        return None
+    b, m = tagged_triples[0][1][1].shape
+    if not chain_scan_ok(b, m):
+        return None
+    res = chain_scan(_sorted_table_passes(tagged_triples), site="sorted_tables")
+    return [g[0] for g in res[0]]
+
+
+def _sorted_table_passes(tagged_triples) -> List[dict]:
+    """The chain program of :func:`_sorted_table_streams`: one pass, a
+    run-length group per "top" job and a run-first segmax per "dup" job."""
+    groups = []
+    for kind, (_, s_hash, sidx) in tagged_triples:
+        rs = _run_starts(s_hash)
+        if kind == "top":
+            groups.append(_seg_add_group((torch.ones_like(s_hash),), rs))
+        else:
+            groups.append({"kind": "segmax",
+                           "xs": (_i32(torch.where(rs, sidx, -(2**30))), _i32(rs))})
+    return [chain_pass(groups)]
+
+
+def _top_duplicate_sorted(sorted_triple, run_len=None) -> torch.Tensor:
     """find_top_duplicate semantics: bytes*count of the most frequent item,
-    ties by larger contribution, 0 when nothing repeats (text.rs:211-238)."""
+    ties by larger contribution, 0 when nothing repeats (text.rs:211-238).
+    ``run_len``: the run-length scan, when :func:`_sorted_table_streams`
+    computed it."""
     is_real, s_hash, s_bytes = sorted_triple
     run_start = _run_starts(s_hash)
-    run_len = seg_scan_add(torch.ones_like(s_hash), run_start)
+    if run_len is None:
+        run_len = seg_scan_add(torch.ones_like(s_hash), run_start)
     run_end = _shift_l(run_start, True)
     counts = torch.where(run_end & is_real, run_len, 0)
     max_count = counts.amax(dim=1, keepdim=True)
@@ -547,17 +802,30 @@ def _top_duplicate_sorted(sorted_triple) -> torch.Tensor:
 # --- GopherQuality -----------------------------------------------------------
 
 
-def gopher_quality_stats(
-    st: TextStructure, stop_word_hashes: Sequence[int]
-) -> Dict[str, torch.Tensor]:
-    """Integer stats for GopherQualityFilter (gopher_quality.rs:69-295)."""
+class _QualityFrame(NamedTuple):
+    """The operands :func:`gopher_quality_stats` derives before its scans."""
+
+    li: LineInfo
+    nonws: torch.Tensor  # [B, L] bool — line content, not whitespace
+    is_dot: torch.Tensor  # [B, L] bool
+    dot_start: torch.Tensor  # [B, L] bool — first '.' of a dot run
+    is_stop: Optional[torch.Tensor]  # [B, L] bool at unit ends, or None
+    totals: Tuple[torch.Tensor, ...]  # [B, L] streams summed per row
+    r_reset: torch.Tensor  # [B, L] bool — reversed line resets
+    is_bullet_char: torch.Tensor  # [B, L] bool
+
+
+def _dot_runs(cps: torch.Tensor, mask: torch.Tensor):
+    """``(is_dot, dot_start)``: '.' chars and the first of each run."""
+    is_dot = (cps == ord(".")) & mask
+    return is_dot, is_dot & ~_shift_r(is_dot, False)
+
+
+def _quality_frame(st: TextStructure, stop_word_hashes: Sequence[int]) -> _QualityFrame:
     cps, cls, mask = st.cps, st.cls, st.mask
     valid_end = st.unit_end & st.unit_valid
-    n_words = st.n_words
-
     # Non-overlapping "..." count: dot-run lengths // 3 (str::matches parity).
-    is_dot = (cps == ord(".")) & mask
-    dot_start = is_dot & ~_shift_r(is_dot, False)
+    is_dot, dot_start = _dot_runs(cps, mask)
 
     li = line_info(cps, mask)
     ws = (cls & WS) != 0
@@ -569,60 +837,104 @@ def gopher_quality_stats(
     else:
         is_stop = None
 
-    if fused_scan_ok(*cps.shape):
+    # Row totals that depend on no scan output: '#' and '…' counts, valid
+    # words' lengths, alphabetic words and stop words.
+    totals = [
+        (cps == ord("#")) & mask,
+        (cps == 0x2026) & mask,
+        torch.where(valid_end, st.unit_len, 0),
+        valid_end & st.unit_alpha,
+    ]
+    if is_stop is not None:
+        totals.append(valid_end & is_stop)
+    r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
+    is_bullet_char = (cps == 0x2022) | (cps == ord("-"))
+    return _QualityFrame(li, nonws, is_dot, dot_start, is_stop, tuple(totals), r_reset,
+                         is_bullet_char)
+
+
+def _quality_passes(st: TextStructure, fr: _QualityFrame) -> List[dict]:
+    """The chain program of :func:`gopher_quality_stats`: the dot runs, the
+    row totals and the forward line counter; the reversed counter (a
+    reverse pass); then the bullet and ellipsis line flags from both
+    counters' taps, summed as [B, 1] carries (JAX stats.py:849-953)."""
+    cps, mask = st.cps, st.mask
+    nonws_i, is_dot_i = _i32(fr.nonws), _i32(fr.is_dot)
+    return [
+        chain_pass(
+            [
+                _seg_add_group((is_dot_i,), fr.dot_start),
+                affine_group(_i32(torch.where(_line_reset(fr.li, mask), 0, 1)), (nonws_i,),
+                             emit="none"),
+                _sum_group(fr.totals),
+            ]
+        ),
+        # The reversed counter's operands in natural orientation (the pass
+        # walks them flipped): rev() of the staged ones.
+        chain_pass([affine_group(_i32(rev(torch.where(fr.r_reset, 0, 1))), (nonws_i,),
+                                 emit="none")], reverse=True),
+        chain_pass(
+            [
+                chain_group(
+                    "add",
+                    (Tap(0, 1), Tap(1, 0), Tap(0, 0), nonws_i, _i32(fr.is_bullet_char),
+                     _i32(cps == 0x2026), is_dot_i),
+                    prep=line_flags, n_ops=2, emit="last",
+                )
+            ]
+        ),
+    ]
+
+
+def gopher_quality_stats(
+    st: TextStructure, stop_word_hashes: Sequence[int]
+) -> Dict[str, torch.Tensor]:
+    """Integer stats for GopherQualityFilter (gopher_quality.rs:69-295)."""
+    cps, mask = st.cps, st.mask
+    n_words = st.n_words
+    fr = _quality_frame(st, stop_word_hashes)
+    li, nonws, is_dot, dot_start, is_stop, totals, r_reset, is_bullet_char = fr
+    chained = chain_scan_ok(*cps.shape)
+    if chained:
+        res = chain_scan(_quality_passes(st, fr), site="gopher_quality")
+        (dot_run,) = res[0][0]
+        sums = [x[:, 0] for x in res[0][2]]
+        bullet_lines = res[2][0][0][:, 0]
+        ellipsis_lines = res[2][0][1][:, 0]
+    elif fused_scan_ok(*cps.shape):
         # One launch for the three independent scans (dot runs, first- and
-        # last-non-ws-in-line counters) and every row total that does not
-        # depend on a scan output, the totals as [B, 1] final carries.
-        totals = [
-            (cps == ord("#")) & mask,
-            (cps == 0x2026) & mask,
-            torch.where(valid_end, st.unit_len, 0),
-            valid_end & st.unit_alpha,
-        ]
-        if is_stop is not None:
-            totals.append(valid_end & is_stop)
-        r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
+        # last-non-ws-in-line counters) and the row totals as [B, 1] final
+        # carries.
         res = fused_scan(
             [
                 _seg_add_group((is_dot,), dot_start),
                 _seg_add_group((nonws,), _line_reset(li, mask)),
                 _seg_add_group((rev(nonws),), r_reset),
-                _sum_group(tuple(totals)),
+                _sum_group(totals),
             ]
         )
         (dot_run,) = res[0]
         leader = nonws & (res[1][0] == 1)
         last_nonws = rev(rev(nonws) & (res[2][0] == 1))
-        t = res[3]
-        hash_count = t[0][:, 0]
-        ellipsis_uni = t[1][:, 0]
-        sum_len = t[2][:, 0]
-        alpha_words = t[3][:, 0]
-        stop_words = t[4][:, 0] if is_stop is not None else torch.zeros_like(n_words)
+        sums = [x[:, 0] for x in res[3]]
     else:
         dot_run = seg_scan_add(is_dot.to(_I32), dot_start)
         leader = _first_nonws_in_line(nonws, li, mask)
         last_nonws = _last_nonws_in_line(nonws, li, mask)
-        hash_count = _sum32((cps == ord("#")) & mask)
-        ellipsis_uni = _sum32((cps == 0x2026) & mask)
-        sum_len = _sum32(torch.where(valid_end, st.unit_len, 0))
-        alpha_words = _sum32(valid_end & st.unit_alpha)
-        if is_stop is not None:
-            stop_words = _sum32(valid_end & is_stop)
-        else:
-            stop_words = torch.zeros_like(n_words)
+        sums = [_sum32(x) for x in totals]
+    hash_count, ellipsis_uni, sum_len, alpha_words = sums[:4]
+    stop_words = sums[4] if is_stop is not None else torch.zeros_like(n_words)
+
+    if not chained:
+        # Bullet lines: first non-ws char is '•' or '-' (trim_start semantics).
+        bullet_lines = _sum32(leader & is_bullet_char)
+        # Ellipsis-ended lines: last non-ws char is '…' or closes a >=3 dot run.
+        ell_line = last_nonws & ((cps == 0x2026) | (is_dot & (dot_run >= 3)))
+        ellipsis_lines = _sum32(ell_line)
 
     dot_end = is_dot & ~_shift_l(is_dot, False)
     ellipsis_ascii = _sum32(torch.where(dot_end, dot_run // 3, 0))
     ellipsis_units = (ellipsis_ascii + ellipsis_uni).to(_I32)
-
-    # Bullet lines: first non-ws char is '•' or '-' (trim_start semantics).
-    is_bullet_char = (cps == 0x2022) | (cps == ord("-"))
-    bullet_lines = _sum32(leader & is_bullet_char)
-
-    # Ellipsis-ended lines: last non-ws char is '…' or closes a >=3 dot run.
-    ell_line = last_nonws & ((cps == 0x2026) | (is_dot & (dot_run >= 3)))
-    ellipsis_lines = _sum32(ell_line)
 
     return {
         "n_words": n_words,
@@ -728,19 +1040,26 @@ def fineweb_stats(
 # --- GopherRepetition --------------------------------------------------------
 
 
-def gopher_rep_stats(
-    st: TextStructure,
-    top_ns: Sequence[int],
-    dup_ns: Sequence[int],
-    max_segs: int,
-    max_words: int,
-) -> Dict[str, torch.Tensor]:
-    """Integer stats for GopherRepetitionFilter (gopher_rep.rs:52-219)."""
+class _RepFrame(NamedTuple):
+    """The operands :func:`gopher_rep_stats` derives before its scans."""
+
+    in_trim: torch.Tensor  # [B, L] bool — inside the trimmed text
+    trimmed_len: torch.Tensor  # [B] int32
+    is_nl: torch.Tensor  # [B, L] bool — '\n' inside the trim
+    prev_nl: torch.Tensor  # [B, L] bool
+    at_t0: torch.Tensor  # [B, L] bool — the trim's first char
+    l_content: torch.Tensor  # [B, L] bool — line content
+    l_start: torch.Tensor  # [B, L] bool — a line's first char
+    nl_start: torch.Tensor  # [B, L] bool — first '\n' of a run
+    nl_run_end: torch.Tensor  # [B, L] bool — last '\n' of a run
+    widths: torch.Tensor  # [B, L] UTF-8 bytes per char
+
+
+def _rep_frame(st: TextStructure) -> _RepFrame:
     cps, cls, mask = st.cps, st.cls, st.mask
-    dev = cps.device
     ws = (cls & WS) != 0
     _, length = cps.shape
-    pos = _iota(length, dev)
+    pos = _iota(length, cps.device)
 
     # Trim bounds (gopher_rep.rs:57).
     nonws = mask & ~ws
@@ -761,21 +1080,124 @@ def gopher_rep_stats(
     # Paragraph separators: \n chars inside runs of >= 2.
     nl_start = is_nl & ~prev_nl
     nl_run_end = is_nl & ~_shift_l(is_nl, False)
-    widths = utf8_width(cps)
+    return _RepFrame(in_trim, trimmed_len, is_nl, prev_nl, at_t0, l_content, l_start,
+                     nl_start, nl_run_end, utf8_width(cps))
 
-    nl_run = seg_scan_add(is_nl.to(_I32), nl_start)
-    run_total = rev(
-        seg_scan_max(rev(torch.where(nl_run_end, nl_run, 0).to(_I32)), rev(nl_run_end))
-    )
+
+def _rep_passes(cps: torch.Tensor, fr: _RepFrame) -> List[dict]:
+    """The chain program of :func:`gopher_rep_stats`, one launch instead of
+    six scans (JAX stats.py:1177-1268): pass 0 counts newline runs; pass 1
+    (reverse) spreads each run's total over its run; pass 2 derives the
+    paragraph frame from run-total taps and runs the four line/paragraph
+    hash and byte scans."""
+    is_nl_i = _i32(fr.is_nl)
+    para_deps = (Tap(1, 0), Tap(1, 0, shift=1, fill=0), is_nl_i, _i32(fr.prev_nl),
+                 _i32(fr.in_trim), _i32(fr.at_t0))
+    cps_i, widths_i = _i32(cps), _i32(fr.widths)
+    return [
+        chain_pass([affine_group(_i32(torch.where(fr.nl_start, 0, 1)), (is_nl_i,),
+                                 emit="none")]),
+        chain_pass([chain_group("segmax", (Tap(0, 0), _i32(fr.nl_run_end)),
+                                prep=nl_run_total, n_ops=2)], reverse=True),
+        chain_pass(
+            [
+                _poly_hash_group((cps_i,), fr.l_content, fr.l_start),
+                _seg_add_group((torch.where(fr.l_content, fr.widths, 0),), fr.l_start),
+                chain_group("affine", para_deps + (cps_i,), prep=para_hash, n_ops=2),
+                chain_group("affine", para_deps + (widths_i,), prep=para_bytes, n_ops=2),
+            ]
+        ),
+    ]
+
+
+def _ngram_jobs(st: TextStructure, top_ns: Sequence[int], dup_ns: Sequence[int],
+                max_words: int):
+    """``(grams, idx, jobs, tags)`` of :func:`gopher_rep_stats`' n-gram
+    tables: per n the window ``(hash, bytes, valid)`` over the word table,
+    the window index ``[B, max_words]``, and the sort jobs that run before
+    the rarity gate with their ``(kind, n)`` tags."""
+    dev = st.cps.device
+    # Word tables for n-grams (word_idx enumerates valid ends gaplessly).
+    valid_end = st.unit_end & st.unit_valid
+    if use_sort_tables():
+        [(wpos, wreal)] = _rank_positions_many([valid_end], max_words)
+        whash = _gather_table(st.unit_hash, wpos, wreal)
+        wbytes = _gather_table(st.unit_bytes, wpos, wreal)
+    else:
+        whash = _scatter(st.unit_hash, st.word_idx, valid_end, max_words)
+        wbytes = _scatter(st.unit_bytes, st.word_idx, valid_end, max_words)
+    widx = _iota(max_words, dev)
+
+    ns = sorted(set(list(top_ns) + list(dup_ns)))
+    grams = {}
+    for n in ns:
+        gh = torch.zeros_like(whash)
+        gb = torch.zeros_like(wbytes)
+        for k in range(n):
+            gh = gh * 1000003 + _pad_cols(whash, k, 0)
+            gb = gb + _pad_cols(wbytes, k, 0)
+        gh = gh * 31 + gb  # byte-length mixing, as for the line/para tables
+        win_valid = (widx + n) <= st.n_words[:, None]
+        grams[n] = (gh, gb, win_valid)
+
+    b, m = whash.shape
+    idx = torch.broadcast_to(_iota(m, dev), (b, m))
+    min_dup = min(dup_ns) if dup_ns else None
+
+    # Ungated jobs: every top-n job plus the SMALLEST dup-n job.  A truly
+    # duplicated n-gram contains a duplicated (n-1)-gram at the same offset,
+    # so "no dup min_dup-grams" implies no dup larger-n-grams either: the
+    # larger-n sorts and the exact walk run only when this cheap gate fires.
+    jobs, tags = [], []
+    for n in ns:
+        gh, gb, win_valid = grams[n]
+        if n in top_ns:
+            # " "-joined n-grams: byte length includes n-1 single-byte spaces.
+            jobs.append((gh, gb + (n - 1), win_valid))
+            tags.append(("top", n))
+        if n == min_dup:
+            jobs.append((gh, idx, win_valid))
+            tags.append(("dup", n))
+    return grams, idx, jobs, tags
+
+
+def gopher_rep_stats(
+    st: TextStructure,
+    top_ns: Sequence[int],
+    dup_ns: Sequence[int],
+    max_segs: int,
+    max_words: int,
+) -> Dict[str, torch.Tensor]:
+    """Integer stats for GopherRepetitionFilter (gopher_rep.rs:52-219)."""
+    cps = st.cps
+    dev = cps.device
+    fr = _rep_frame(st)
+    (in_trim, trimmed_len, is_nl, _, at_t0, l_content, l_start, nl_start, nl_run_end,
+     widths) = fr
+
+    if chain_scan_ok(*cps.shape):
+        res = chain_scan(_rep_passes(cps, fr), site="gopher_rep")
+        run_total = res[1][0][0]
+        l_pre = (res[2][0][0], res[2][1][0])
+        p_pre = (res[2][2][0], res[2][3][0])
+    else:
+        nl_run = seg_scan_add(is_nl.to(_I32), nl_start)
+        run_total = rev(
+            seg_scan_max(rev(torch.where(nl_run_end, nl_run, 0).to(_I32)), rev(nl_run_end))
+        )
+        l_pre = p_pre = None
 
     is_sep = is_nl & (run_total >= 2)
     p_content = in_trim & ~is_sep
     p_start = p_content & (_shift_r(is_sep, False) | at_t0)
 
-    def seg_values(content, start):
+    def seg_values(content, start, pre):
         end = content & ~_shift_l(content, False)
-        h = _poly_hash(cps, content, start)
-        by = seg_scan_add(torch.where(content, widths, 0).to(_I32), start)
+        if pre is not None:
+            h, by = pre
+        else:
+            h = _poly_hash(cps, content, start)
+            by = seg_scan_add(torch.where(content, widths, 0).to(_I32), start)
         n = _sum32(start)
         return end, h, by, n
 
@@ -785,8 +1207,8 @@ def gopher_rep_stats(
         tbl_valid = _iota(max_segs, dev) < n[:, None]
         return tbl_h, tbl_b, tbl_valid, n
 
-    l_end, l_h, l_by, n_l = seg_values(l_content, l_start)
-    p_end, p_h, p_by, n_p = seg_values(p_content, p_start)
+    l_end, l_h, l_by, n_l = seg_values(l_content, l_start, l_pre)
+    p_end, p_h, p_by, n_p = seg_values(p_content, p_start, p_pre)
     if use_sort_tables():
         # Segments are non-empty char runs, so slot j == the j-th segment end.
         (lr, pr) = _rank_positions_many([l_end, p_end], max_segs)
@@ -805,18 +1227,6 @@ def gopher_rep_stats(
     l_dup_elems, l_dup_bytes = _dup_counts_sorted(l_sorted)
     p_dup_elems, p_dup_bytes = _dup_counts_sorted(p_sorted)
 
-    # Word tables for n-grams (word_idx enumerates valid ends gaplessly).
-    valid_end = st.unit_end & st.unit_valid
-    if use_sort_tables():
-        [(wpos, wreal)] = _rank_positions_many([valid_end], max_words)
-        whash = _gather_table(st.unit_hash, wpos, wreal)
-        wbytes = _gather_table(st.unit_bytes, wpos, wreal)
-    else:
-        whash = _scatter(st.unit_hash, st.word_idx, valid_end, max_words)
-        wbytes = _scatter(st.unit_bytes, st.word_idx, valid_end, max_words)
-    n_words = st.n_words
-    widx = _iota(max_words, dev)
-
     out: Dict[str, torch.Tensor] = {
         "trimmed_len": trimmed_len,
         "n_paragraphs": n_p,
@@ -826,48 +1236,25 @@ def gopher_rep_stats(
         "line_dup_elems": l_dup_elems,
         "line_dup_bytes": l_dup_bytes,
         "seg_overflow": (n_l > max_segs) | (n_p > max_segs),
-        "word_overflow": n_words > max_words,
+        "word_overflow": st.n_words > max_words,
     }
 
-    ns = sorted(set(list(top_ns) + list(dup_ns)))
-    grams = {}
-    for n in ns:
-        gh = torch.zeros_like(whash)
-        gb = torch.zeros_like(wbytes)
-        for k in range(n):
-            gh = gh * 1000003 + _pad_cols(whash, k, 0)
-            gb = gb + _pad_cols(wbytes, k, 0)
-        gh = gh * 31 + gb  # byte-length mixing, as for the line/para tables
-        win_valid = (widx + n) <= n_words[:, None]
-        grams[n] = (gh, gb, win_valid)
-
-    b, m = whash.shape
-    idx = torch.broadcast_to(_iota(m, dev), (b, m))
+    n_words = st.n_words
+    grams, idx, jobs, tags = _ngram_jobs(st, top_ns, dup_ns, max_words)
     dup_sizes = sorted(set(dup_ns))
     min_dup = dup_sizes[0] if dup_sizes else None
-
-    # Ungated jobs: every top-n job plus the SMALLEST dup-n job.  A truly
-    # duplicated n-gram contains a duplicated (n-1)-gram at the same offset,
-    # so "no dup min_dup-grams" implies no dup larger-n-grams either: the
-    # larger-n sorts and the exact walk run only when this cheap gate fires.
-    jobs, tags = [], []
-    for n in ns:
-        gh, gb, win_valid = grams[n]
-        if n in top_ns:
-            # " "-joined n-grams: byte length includes n-1 single-byte spaces.
-            jobs.append((gh, gb + (n - 1), win_valid))
-            tags.append(("top", n))
-        if n == min_dup:
-            jobs.append((gh, idx, win_valid))
-            tags.append(("dup", n))
-
     dup_min_flags = dup_min_rid = None
     srts = _sort_runs_many(jobs) if jobs else []
-    for (kind, n), srt in zip(tags, srts):
+    # Every post-sort run scan (top-n run lengths, min-dup run ids) in one
+    # chain launch when the table shape passes the gate.
+    pre = _sorted_table_streams([(kind, srt) for (kind, _), srt in zip(tags, srts)])
+    for i, ((kind, n), srt) in enumerate(zip(tags, srts)):
         if kind == "top":
-            out[f"top_{n}"] = _top_duplicate_sorted(srt)
+            out[f"top_{n}"] = _top_duplicate_sorted(srt, run_len=pre[i] if pre else None)
         else:
-            dup_min_flags, dup_min_rid = _dup_run_info_sorted(srt, grams[n][2], idx)
+            dup_min_flags, dup_min_rid = _dup_run_info_sorted(
+                srt, grams[n][2], idx, first_in_run=pre[i] if pre else None
+            )
 
     if dup_sizes:
         # The JAX package's lax.cond rarity gate, as one host sync.
@@ -876,8 +1263,11 @@ def gopher_rep_stats(
             rest = dup_sizes[1:]
             if rest:
                 rsrts = _sort_runs_many([(grams[n][0], idx, grams[n][2]) for n in rest])
-                for n, srt in zip(rest, rsrts):
-                    _, rid_n = _dup_run_info_sorted(srt, grams[n][2], idx)
+                rpre = _sorted_table_streams([("dup", srt) for srt in rsrts])
+                for i, (n, srt) in enumerate(zip(rest, rsrts)):
+                    _, rid_n = _dup_run_info_sorted(
+                        srt, grams[n][2], idx, first_in_run=rpre[i] if rpre else None
+                    )
                     walk.append((n, rid_n, grams[n][2], grams[n][1]))
             res = _find_all_dup_bytes_batched(walk)
             for n in dup_sizes:
@@ -888,15 +1278,20 @@ def gopher_rep_stats(
     return out
 
 
-def _dup_run_info_sorted(sorted_triple, win_valid, idx) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dup_run_info_sorted(
+    sorted_triple, win_valid, idx, first_in_run=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(flags, run_first)`` from a ``(hash, idx)``-sorted window table:
     ``flags`` — "an earlier identical window exists" (the rarity gate);
     ``run_first`` — each window's run id (the minimum window index sharing
-    its hash), the canonical slot for the walk's visited table."""
+    its hash), the canonical slot for the walk's visited table.
+    ``first_in_run``: that run scan, when :func:`_sorted_table_streams`
+    computed it."""
     is_real, s_hash, sidx = sorted_triple
     b, m = s_hash.shape
     run_start = _run_starts(s_hash)
-    first_in_run = seg_scan_max(torch.where(run_start, sidx, -(2**30)).to(_I32), run_start)
+    if first_in_run is None:
+        first_in_run = seg_scan_max(torch.where(run_start, sidx, -(2**30)).to(_I32), run_start)
     if use_sort_tables():
         # Un-sort by window index instead of scattering: real entries' sidx
         # values are exactly 0..n_valid-1, so sorting (sidx, first_in_run)
@@ -1020,15 +1415,75 @@ def sentence_boundaries(
     return (candidate & ~no_break) | (_shift_r(psep, False) & mask)
 
 
+def _sentence_frame(cps: torch.Tensor, mask: torch.Tensor, cls: torch.Tensor) -> dict:
+    """The elementwise operands of :func:`sentence_boundaries` as int32
+    chain operands (JAX stats.py:1604)."""
+    term = isin_sorted(cps, _TERM_SET) & mask
+    close = isin_sorted(cps, _CLOSE_SET) & mask
+    sp = isin_sorted(cps, _SP_SET) & mask
+    psep = isin_sorted(cps, _PSEP_SET) & mask
+    sym = torch.zeros_like(cps)
+    sym = torch.where(term, 1, sym)
+    sym = torch.where(close & ~term, 2, sym)
+    sym = torch.where(sp & ~close & ~term, 3, sym)
+    return {
+        "fns": dfa_packed_fns(sym, _SENT_T).contiguous(),
+        "term": _i32(term),
+        "sterm": _i32(isin_sorted(cps, _STERM_SET) & mask),
+        "lower": _i32((cls & LOWER) != 0),
+        "alnum": _i32(((cls & ALNUM) != 0) | (cps == ord("_"))),
+        "sh_dot": _i32(_shift_r((cps == ord(".")) & mask, False)),
+        "sh_psep": _i32(_shift_r(psep, False) & mask),
+        "mask": _i32(mask),
+    }
+
+
+def _sentence_passes(fr: dict, begin_extra: torch.Tensor, nonws: torch.Tensor, emit: str):
+    """Passes 0-2 of the sentence chain (JAX stats.py:1631): the DFA map
+    composition, the sterm-run counter, and the per-segment non-ws counter
+    whose resets follow :func:`sentence_boundaries`' rule, derived from
+    packed-state taps (``prev_*`` as shift taps with fill 0; the sterm OR as
+    a segmented SUM tested ``> 0``)."""
+    return [
+        chain_pass([{"kind": "dfa", "xs": (fr["fns"],), "emit": emit, "n_states": 4}]),
+        chain_pass(
+            [chain_group("affine", (Tap(0, 0), Tap(0, 0, shift=1, fill=0), fr["term"], fr["sterm"]),
+                         prep=sentence_hst, n_ops=2, emit=emit)]
+        ),
+        chain_pass(
+            [
+                chain_group(
+                    "affine",
+                    (Tap(0, 0), Tap(0, 0, shift=1, fill=0), Tap(1, 0, shift=1, fill=0),
+                     fr["term"], fr["sh_dot"], fr["lower"], fr["alnum"], fr["sh_psep"],
+                     fr["mask"], _i32(begin_extra), nonws),
+                    prep=sentence_cnt, n_ops=2, emit=emit,
+                )
+            ]
+        ),
+    ]
+
+
+def _sentence_count_passes(cps, mask, cls, nonws) -> List[dict]:
+    """The chain program of :func:`sentence_counts`: DFA -> sterm counter ->
+    segment counter -> total in one launch; only the [B, 1] count leaves
+    the kernel (JAX stats.py:1710-1730)."""
+    nonws_i = _i32(nonws)
+    passes = _sentence_passes(_sentence_frame(cps, mask, cls), _first_col(mask), nonws_i, "none")
+    passes.append(chain_pass([chain_group("add", (Tap(2, 0), nonws_i), prep=sentence_first,
+                                          n_ops=1, emit="last")]))
+    return passes
+
+
 def sentence_counts(cps: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Sentences per row — ``len(split_into_sentences(text))`` for rows whose
     content is already globally trimmed (C4's rewritten batches are)."""
-    _, length = cps.shape
-    mask = _iota(length, cps.device) < lengths[:, None]
-    cls = classify(cps)
-    cls = torch.where(mask, cls, torch.zeros_like(cls))
-    ws = (cls & WS) != 0
-    nonws = mask & ~ws
+    mask, cls = _text_frame(cps, lengths)
+    nonws = mask & ~((cls & WS) != 0)
+
+    if chain_scan_ok(*cps.shape):
+        res = chain_scan(_sentence_count_passes(cps, mask, cls, nonws), site="sentence_counts")
+        return res[3][0][0][:, 0]
 
     boundary = sentence_boundaries(cps, mask, cls)
     seg_begin = boundary | _first_col(mask)
@@ -1066,6 +1521,71 @@ _POLICY = (
 )
 
 
+def _c4_line_patterns(params: C4Params) -> Tuple[str, ...]:
+    """The line patterns whose UNION of flags affects C4's line_keep."""
+    line_patterns: Tuple[str, ...] = ()
+    if params.filter_javascript:
+        line_patterns += ("javascript",)
+    if params.filter_policy:
+        line_patterns += _POLICY
+    return line_patterns
+
+
+def _c4_line_frame(cps, mask, ws):
+    """``(li, nonws, reset, r_reset)`` of C4's split-paragraph mode: the
+    line structure, its non-ws content, and the forward and reversed line
+    resets."""
+    li = line_info(cps, mask)
+    r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
+    return li, li.content & ~ws, _line_reset(li, mask), r_reset
+
+
+def _c4_trim_passes(nonws, reset, r_reset, low, mask, lorem: bool) -> List[dict]:
+    """The chain program of C4's split-paragraph trim: the forward line
+    counter (with the lorem-ipsum candidate hash beside it when ``lorem``)
+    and the reversed one as a reverse pass, its operands in natural
+    orientation (JAX stats.py:1838-1867)."""
+    g0 = [_seg_add_group((nonws,), reset)]
+    if lorem:
+        g0.append(_pattern_hash_group(low, mask))
+    return [
+        chain_pass(g0),
+        chain_pass([affine_group(_i32(rev(torch.where(r_reset, 0, 1))), (_i32(nonws),))],
+                   reverse=True),
+    ]
+
+
+def _c4_sentence_frame(pos, mask, ws):
+    """``(t0, in_trim, nonws)`` of C4's sentence mode: the global trim's
+    first lane, the chars inside it, and its non-ws chars."""
+    length = mask.shape[1]
+    nonws_all = mask & ~ws
+    t0 = torch.where(nonws_all, pos, length).amin(dim=1)
+    t1 = torch.where(nonws_all, pos, -1).amax(dim=1)
+    in_trim = (pos >= t0[:, None]) & (pos <= t1[:, None]) & mask
+    return t0, in_trim, in_trim & ~ws
+
+
+def _c4_sentence_passes(fr: dict, begin, nonws, low, mask, lorem: bool) -> List[dict]:
+    """The chain program of C4's sentence mode: the sentence DFA -> sterm
+    counter -> segment counter in one launch, with the lorem candidate hash
+    beside the DFA when ``lorem`` (JAX stats.py:1903-1930)."""
+    passes = _sentence_passes(fr, begin, _i32(nonws), "scan")
+    if lorem:
+        passes[0]["groups"].append(_pattern_hash_group(low, mask))
+    return passes
+
+
+def _c4_post_passes(is_dot, dot_start, low, mask, patterns: bool) -> List[dict]:
+    """The chain program of C4's post-compaction pass: the dot-run counter
+    and, when ``patterns``, the line-pattern candidate hash, in one launch
+    over the rewritten batch (JAX stats.py:1993-2009)."""
+    g1 = [_seg_add_group((is_dot,), dot_start)]
+    if patterns:
+        g1.append(_pattern_hash_group(low, mask))
+    return [chain_pass(g1)]
+
+
 def c4_stage(
     cps: torch.Tensor,
     lengths: torch.Tensor,
@@ -1083,9 +1603,7 @@ def c4_stage(
     _, length = cps.shape
     dev = cps.device
     pos = _iota(length, dev)
-    mask = pos < lengths[:, None]
-    cls = classify(cps)
-    cls = torch.where(mask, cls, torch.zeros_like(cls))
+    mask, cls = _text_frame(cps, lengths)
     ws = (cls & WS) != 0
     low = _lowered(cps, mask)
 
@@ -1105,14 +1623,22 @@ def c4_stage(
         )
 
     gap_overflow = torch.zeros(cps.shape[0], dtype=torch.bool, device=dev)
+    # The lorem-ipsum candidate prefix hash, when a chain launch below
+    # computed it.
+    lorem_h = None
     if params.split_paragraph:
-        li = line_info(cps, mask)
-        nonws = li.content & ~ws
-        reset = _line_reset(li, mask)
-
         # Per-line trim: chars at/after the first non-ws, at/before the last.
-        r_reset = _first_col(mask) | _shift_r(rev(li.is_nl), False)
-        if fused_scan_ok(*cps.shape):
+        li, nonws, reset, r_reset = _c4_line_frame(cps, mask, ws)
+        if chain_scan_ok(*cps.shape):
+            res = chain_scan(
+                _c4_trim_passes(nonws, reset, r_reset, low, mask, params.filter_lorem_ipsum),
+                site="c4_trim",
+            )
+            after_first = res[0][0][0] >= 1
+            if params.filter_lorem_ipsum:
+                lorem_h = res[0][1][0]
+            before_last = res[1][0][0] >= 1
+        elif fused_scan_ok(*cps.shape):
             # The forward and reversed line counters are independent: one
             # launch instead of two staged scans.
             res = fused_scan(
@@ -1132,15 +1658,33 @@ def c4_stage(
     else:
         # Sentence mode: global trim, boundaries from the sentence DFA,
         # segments between boundaries, each trimmed.
-        nonws_all = mask & ~ws
-        t0 = torch.where(nonws_all, pos, length).amin(dim=1)
-        t1 = torch.where(nonws_all, pos, -1).amax(dim=1)
-        in_trim = (pos >= t0[:, None]) & (pos <= t1[:, None]) & mask
-
-        nonws = in_trim & ~ws
-        boundary = sentence_boundaries(cps, in_trim, cls)
-        seg_begin = (boundary | (pos == t0[:, None])) & in_trim
-        cnt = seg_scan_add(nonws.to(_I32), seg_begin)
+        t0, in_trim, nonws = _c4_sentence_frame(pos, mask, ws)
+        if chain_scan_ok(*cps.shape):
+            # The boundary mask is recomputed elementwise from the chain's
+            # streams with sentence_boundaries' formulas.
+            fr = _sentence_frame(cps, in_trim, cls)
+            res = chain_scan(
+                _c4_sentence_passes(fr, (pos == t0[:, None]) & in_trim, nonws, low, mask,
+                                    params.filter_lorem_ipsum),
+                site="c4_sentences",
+            )
+            state = res[0][0][0] & 15
+            if params.filter_lorem_ipsum:
+                lorem_h = res[0][1][0]
+            cnt = res[2][0][0]
+            prev_state = _shift_r(state, 0)
+            prev_has_sterm = _shift_r(res[1][0][0], 0) > 0
+            term = fr["term"] != 0
+            fresh_term = term & ((prev_state == 2) | (prev_state == 3))
+            candidate = in_trim & (prev_state > 0) & ((state == 0) | fresh_term)
+            dot_last = (fr["sh_dot"] != 0) & (prev_state == 1)
+            no_break = ~prev_has_sterm & ((dot_last & (fr["alnum"] != 0)) | (fr["lower"] != 0))
+            boundary = (candidate & ~no_break) | ((fr["sh_psep"] != 0) & in_trim)
+            seg_begin = (boundary | (pos == t0[:, None])) & in_trim
+        else:
+            boundary = sentence_boundaries(cps, in_trim, cls)
+            seg_begin = (boundary | (pos == t0[:, None])) & in_trim
+            cnt = seg_scan_add(nonws.to(_I32), seg_begin)
         first_nonws_seg = nonws & (cnt == 1)
         n_units = _sum32(first_nonws_seg)
 
@@ -1163,7 +1707,7 @@ def c4_stage(
         c1_src = torch.where(sep_keep, NL, cps).to(_I32)
 
     if params.filter_lorem_ipsum:
-        has_lorem = _pattern_union_starts(low, mask, ("lorem ipsum",)).any(dim=1)
+        has_lorem = _pattern_union_starts(low, mask, ("lorem ipsum",), h_inc=lorem_h).any(dim=1)
     else:
         has_lorem = torch.zeros(cps.shape[0], dtype=torch.bool, device=dev)
 
@@ -1176,18 +1720,20 @@ def c4_stage(
     low1 = _lowered(c1_cps, m1)
 
     valid_end1 = st1.unit_end & st1.unit_valid
-    is_dot1 = (c1_cps == ord(".")) & m1
-    dot_start1 = is_dot1 & ~_shift_r(is_dot1, False)
+    is_dot1, dot_start1 = _dot_runs(c1_cps, m1)
+    line_patterns = _c4_line_patterns(params)
 
-    # Only the UNION of javascript/policy line flags affects line_keep.
-    line_patterns: Tuple[str, ...] = ()
-    if params.filter_javascript:
-        line_patterns += ("javascript",)
-    if params.filter_policy:
-        line_patterns += _POLICY
-
-    dot_run1 = seg_scan_add(is_dot1.to(_I32), dot_start1)
-    starts = _pattern_union_starts(low1, m1, line_patterns) if line_patterns else None
+    starts_h = None
+    if chain_scan_ok(*cps.shape):
+        res1 = chain_scan(_c4_post_passes(is_dot1, dot_start1, low1, m1, bool(line_patterns)),
+                          site="c4_post")
+        dot_run1 = res1[0][0][0]
+        if line_patterns:
+            starts_h = res1[0][1][0]
+    else:
+        dot_run1 = seg_scan_add(is_dot1.to(_I32), dot_start1)
+    starts = (_pattern_union_starts(low1, m1, line_patterns, h_inc=starts_h)
+              if line_patterns else None)
 
     if use_sort_tables():
         # Slot j = line id j: every line present in the compacted batch has
@@ -1295,3 +1841,63 @@ def c4_stage(
         "line_overflow": (n_lines1 > max_lines) | gap_overflow,
     }
     return stats, c2_cps, c2_len
+
+
+# --- every chain site's program on one batch ------------------------------------
+
+
+def sorted_table_programs(
+    st: TextStructure, top_ns: Sequence[int], dup_ns: Sequence[int], max_words: int
+) -> Dict[str, List[dict]]:
+    """The programs of :func:`_sorted_table_streams` over ``st``'s n-gram
+    tables: the ungated jobs (``sorted_tables``) and, with more than one
+    dup size, the rarity gate's larger-n jobs (``sorted_tables_rest``),
+    built whatever the gate decides."""
+    grams, idx, jobs, tags = _ngram_jobs(st, top_ns, dup_ns, max_words)
+    srts = _sort_runs_many(jobs)
+    out = {"sorted_tables": _sorted_table_passes([(k, t) for (k, _), t in zip(tags, srts)])}
+    rest = sorted(set(dup_ns))[1:]
+    if rest:
+        rsrts = _sort_runs_many([(grams[n][0], idx, grams[n][2]) for n in rest])
+        out["sorted_tables_rest"] = _sorted_table_passes([("dup", t) for t in rsrts])
+    return out
+
+
+def chain_site_programs(
+    cps: torch.Tensor,
+    lengths: torch.Tensor,
+    stop_word_hashes: Sequence[int],
+    top_ns: Sequence[int],
+    dup_ns: Sequence[int],
+    max_words: int,
+    c4: C4Params,
+) -> Dict[str, List[dict]]:
+    """Site name -> the :func:`~.scan.chain_scan` program of every call site
+    on one packed batch, built by the builders the sites call (``structure``
+    with and without hashes, both C4 split modes), so that the kernel can be
+    held against its plain version on the operands the main path gives it.
+    C4's post-compaction pass and ``sentence_counts`` take the batch as
+    their rewritten text.  The sites' gates are not applied."""
+    mask, cls = _text_frame(cps, lengths)
+    ws = (cls & WS) != 0
+    pos = _iota(cps.shape[1], cps.device)
+    low = _lowered(cps, mask)
+    st = structure(cps, lengths)
+    _, nonws, reset, r_reset = _c4_line_frame(cps, mask, ws)
+    t0, in_trim, s_nonws = _c4_sentence_frame(pos, mask, ws)
+    lorem = c4.filter_lorem_ipsum
+    progs = {
+        "structure": _structure_passes(cps, mask, cls, True),
+        "structure_nohash": _structure_passes(cps, mask, cls, False),
+        "gopher_quality": _quality_passes(st, _quality_frame(st, stop_word_hashes)),
+        "gopher_rep": _rep_passes(cps, _rep_frame(st)),
+        "c4_trim": _c4_trim_passes(nonws, reset, r_reset, low, mask, lorem),
+        "c4_sentences": _c4_sentence_passes(_sentence_frame(cps, in_trim, cls),
+                                            (pos == t0[:, None]) & in_trim, s_nonws, low, mask,
+                                            lorem),
+        "c4_post": _c4_post_passes(*_dot_runs(cps, mask), low, mask,
+                                   bool(_c4_line_patterns(c4))),
+        "sentence_counts": _sentence_count_passes(cps, mask, cls, mask & ~ws),
+    }
+    progs.update(sorted_table_programs(st, top_ns, dup_ns, max_words))
+    return progs
