@@ -25,7 +25,9 @@ Phases (any failure exits non-zero without the final result line):
    operations at 67 T/s): the kernel and, where one exists, the single
    PyTorch call computing the same function, each replayed from a CUDA
    graph (device time); the wrapper's eager call (host cost included); and
-   the plain version.
+   the plain version.  ``sort2`` also at edge widths (1 .. 16384 keys,
+   ragged) on 1, 7 and 320 rows; ``chain_scan`` also on 600 short rows
+   ([600, 256]) and with a ragged cluster ([64, 5000]).
 4. Main path: a seeded synthetic Danish/English corpus of >= 20,000
    documents whose lengths fill all five default buckets is written to
    Parquet and run through the port's ``run`` entry point on ``cuda`` with
@@ -40,9 +42,15 @@ Phases (any failure exits non-zero without the final result line):
    ``chain_scan``, ``fused_scan``, ``affine_scan``, ``dfa_scan`` and
    ``sort2``; each fused run ``fused_scan`` and never ``chain_scan``; the
    staged run ``affine_scan``, ``dfa_scan`` and ``sort2`` and neither
-   ``fused_scan`` nor ``chain_scan``.  Launch counters are set to 0 just
-   before each run and read just after.
-5. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+   ``fused_scan`` nor ``chain_scan``.  Launch counters (per kernel, per
+   shape, and per chain site and width) are set to 0 just before each run
+   and read just after.
+5. Launches per shape: the first chain run's launches of every kernel by
+   shape, each beside the kernel's time at that shape (``sort2`` is timed
+   at every shape the run launched it at), and per kernel the sum of
+   launches x (kernel ms - bound ms), the device time the kernel loses on
+   the main path against its bound.
+6. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -483,6 +491,7 @@ def kernel_phase(corpus):
     sort_shapes = [(128, w) for w in (128, 256, 1024, 4096, 8192)]
     sort_shapes += [(r, w) for r in (256, 320) for w in (256, 512, 2048, 8192, 16384)]
     sort_shapes += [(r, w) for r in (64, 128) for w in (32768, 65536, 1536)]
+    sort_shapes += [(r, w) for r in (1, 7, 320) for w in (1, 3, 255, 257, 1025, 2049, 16383)]
     for rows, width in sort_shapes:
         k1 = torch.from_numpy(rng.integers(-1000, 1000, size=(rows, width)).astype(np.int32)).to(dev)
         k2 = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(rows, width)).astype(np.int32)).to(dev)
@@ -516,7 +525,8 @@ def kernel_phase(corpus):
     # width the chain takes.
     errs["chain_scan"] = 0
     text_shapes = [(64, 512), (64, 2048), (64, 8192), (37, 1000), (64, 32768), (64, 65536)]
-    generic_shapes = [(64, 512), (64, 2048), (64, 8192), (64, 16384), (37, 1000)]
+    generic_shapes = [(64, 512), (64, 2048), (64, 8192), (64, 16384), (37, 1000), (600, 256),
+                      (64, 5000)]
     sites, chain_widths, site_progs = set(), set(), {}
 
     def check_chain(label, passes):
@@ -696,7 +706,45 @@ def kernel_phase(corpus):
                            and r["site"] == "structure" and r["bucket"] == 8192),
         "sort3": next(r for r in per_shape if r["kernel"] == "sort3" and r["shape"] == [64, 16384]),
     }
-    return errs, rep, per_shape
+    return errs, rep, per_shape, time_sort
+
+
+def launch_losses(run, per_shape, time_sort):
+    """The run's launches of every kernel by shape, each beside the kernel's
+    time at that shape from ``per_shape`` (``sort2`` timed now at any shape
+    not timed yet; ``affine_scan`` at k=2, ``dfa_scan`` at 5 states and
+    ``fused_scan`` with ``fineweb``'s list, the chain schedule's one fused
+    site), and per kernel the sum of launches x (kernel ms - bound ms)."""
+    timed = {}
+    for r in per_shape:
+        timed.setdefault((r["kernel"], r.get("site"), r["shape"][0], r["shape"][1]), r)
+    site_of = {"fused_scan": "fineweb"}
+    rows, totals = [], {}
+    launched = [(k, site_of.get(k), b, n, c) for (k, b, n), c in run["shape_launches"]]
+    launched += [("chain_scan", s, 64, n, c) for (s, n), c in run["chain_shape_launches"]]
+    for kernel, site, b, n, count in sorted(launched, key=lambda x: (x[0], str(x[1]), x[2], x[3])):
+        t = timed.get((kernel, site, b, n))
+        if t is None and kernel == "sort2":
+            t = {"kernel": "sort2", **time_sort(b, n)}
+            per_shape.append(t)
+            timed[(kernel, site, b, n)] = t
+        row = {"kernel": kernel, "site": site, "shape": [b, n], "launches": count,
+               "ms": t["ms"] if t else None, "bound_ms": t["bound_ms"] if t else None}
+        row["loss_ms"] = count * (t["ms"] - t["bound_ms"]) if t else None
+        rows.append(row)
+        tot = totals.setdefault(kernel, {"launches": 0, "timed_launches": 0, "loss_ms": 0.0})
+        tot["launches"] += count
+        if t:
+            tot["timed_launches"] += count
+            tot["loss_ms"] += row["loss_ms"]
+    for r in rows:
+        label = r["kernel"] + (f":{r['site']}" if r["site"] else "")
+        ms = f"{r['ms']:.4f}" if r["ms"] is not None else "not timed"
+        loss = f"{r['loss_ms']:.3f}" if r["loss_ms"] is not None else "-"
+        print(f"  launches {label:32s} {str(r['shape']):14s} {r['launches']:5d} x kernel {ms} ms"
+              f" -> loss {loss} ms", flush=True)
+    print("launches x (kernel ms - bound ms), first chain run: " + json.dumps(totals), flush=True)
+    return {"per_shape": rows, "per_kernel": totals}
 
 
 def time_dup_walk():
@@ -743,7 +791,9 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
     for d in (scan.LAUNCHES, sort.LAUNCHES, stats.DUP_WALK):
         for k in d:
             d[k] = 0
-    scan.CHAIN_SITE_LAUNCHES.clear()
+    for d in (scan.SHAPE_LAUNCHES, sort.SHAPE_LAUNCHES, scan.CHAIN_SITE_LAUNCHES,
+              scan.CHAIN_SHAPE_LAUNCHES):
+        d.clear()
     t0 = time.perf_counter()
     res = run_pipeline(config, inp, *out, backend="device", pipeline=pipe)
     if device == "cuda":
@@ -759,6 +809,11 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
         "device_docs_per_s": res.received / dev_s,
         "launches": {**scan.LAUNCHES, **sort.LAUNCHES},
         "chain_site_launches": dict(scan.CHAIN_SITE_LAUNCHES),
+        # [[kernel, rows, width], n] and [[site, width], n] (JSON keys are strings).
+        "shape_launches": sorted([list(k), v] for k, v in
+                                 {**scan.SHAPE_LAUNCHES, **sort.SHAPE_LAUNCHES}.items()),
+        "chain_shape_launches": sorted(([list(k), v] for k, v in
+                                        scan.CHAIN_SHAPE_LAUNCHES.items()), key=str),
         "pipeline_launches": dict(pipe.counters["launches"]),
         "batches_by_bucket": {str(k): v for k, v in sorted(pipe.counters["batches_by_bucket"].items())},
         "device_rows": pipe.counters["device_rows"],
@@ -903,12 +958,13 @@ def main() -> int:
     print(f"corpus: {len(rows)} documents, {sum(len(r[1]) for r in rows)} chars, "
           f"{time.perf_counter() - t0:.1f} s to make", flush=True)
 
-    errs, rep, per_shape = kernel_phase(rows)
+    errs, rep, per_shape, time_sort = kernel_phase(rows)
     walk = time_dup_walk()
     print(f"dup walk (torch loop): {walk}", flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     summary = main_path("cuda", rows, work)
+    losses = launch_losses(summary["chain"], per_shape, time_sort)
 
     sources = {"affine_scan": "textblaster_tpu_torch/csrc/scan.cu",
                "dfa_scan": "textblaster_tpu_torch/csrc/scan.cu",
@@ -937,7 +993,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
-                   "per_shape": per_shape, "dup_walk": walk, "main_path": summary,
+                   "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
+                   "main_path": summary,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -70,6 +70,39 @@ def test_sort2_kernel_matches_plain(cuda, width):
     assert sort.LAUNCHES["sort2"] == before + 1
 
 
+def _sort2_edge_keys(rng, rows, width):
+    """Random rows with ties and both int32 extremes, and payloads up to
+    INT32_MAX - 1; among them an all-equal row, an already sorted one and a
+    reverse-sorted one."""
+    k1 = rng.integers(-40, 40, size=(rows, width)).astype(np.int32)
+    k1[rng.random(k1.shape) < 0.05] = I32_MAX
+    k1[rng.random(k1.shape) < 0.05] = -(2**31)
+    k2 = rng.integers(0, I32_MAX, size=(rows, width)).astype(np.int32)
+    k2[rng.random(k2.shape) < 0.05] = I32_MAX - 1
+    for i, kind in zip(range(rows), ("equal", "sorted", "reverse")):
+        if kind == "equal":
+            k1[i], k2[i] = 7, 3
+        else:
+            order = np.lexsort((k2[i], k1[i]))
+            if kind == "reverse":
+                order = order[::-1]
+            k1[i], k2[i] = k1[i][order], k2[i][order]
+    return k1, k2
+
+
+@pytest.mark.parametrize("rows", [1, 7, 256, 320])
+@pytest.mark.parametrize("width", [1, 3, 255, 256, 257, 1024, 1025, 2049, 8192, 16383, 16384])
+def test_sort2_register_network_matches_plain(cuda, width, rows):
+    """Every geometry of the register network (one warp per row, one CTA,
+    a 2-CTA cluster) and its padding, exact."""
+    k1, k2 = (torch.from_numpy(a).to(cuda)
+              for a in _sort2_edge_keys(np.random.default_rng(width * 7 + rows), rows, width))
+    got, want = sort.sort2(k1, k2), sort.sort2_plain(k1, k2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert sort.SHAPE_LAUNCHES[("sort2", rows, width)] >= 1
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
@@ -172,8 +205,13 @@ def _assert_chain_equal(got, want):
             assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(g, w))
 
 
-@pytest.mark.parametrize("shape", [(37, 1000), (8, 2048), (64, 8192), (2, 5000)])
+@pytest.mark.parametrize("shape", [(37, 1000), (8, 2048), (64, 8192), (2, 5000), (600, 256),
+                                   (64, 16384), (64, 5000), (3, 7)])
 def test_chain_kernel_matches_plain(cuda, shape):
+    """The generic program (shift taps and reverse passes, so every chunk
+    edge is crossed both ways) and the probe, on every geometry: one CTA a
+    row (one warp at 7 lanes), clusters of 3, 5 and 8 and a ragged last
+    chunk."""
     rng = np.random.default_rng(shape[1])
     r = torch.from_numpy((rng.random(shape) < 0.05).astype(np.int32)).to(cuda)
     vals = torch.from_numpy(rng.integers(0, 97, size=shape).astype(np.int32)).to(cuda)
@@ -184,21 +222,28 @@ def test_chain_kernel_matches_plain(cuda, shape):
         _assert_chain_equal(got, scan.chain_scan_plain(passes))
 
 
-def _text_batch(dev, length=1024, rows=8):
-    texts = [
-        "",
-        "Samme linje her igen og igen.\n" * 12,
-        "Det er en god dag [1], og vi skal ud at gå tur.\nSolen skinner... Der er mange!\n\n"
-        "- punkt et\n• punkt to\nLorem ipsum dolor sit amet javascript …",
-        "数据处理流水线的测试文本。 Og lidt dansk tekst her.",
-        "𝔘𝔫𝔦𝔠𝔬𝔡𝔢 𝕋𝕖𝕩𝕥 🚀 and café́ ascii. Terms of use apply {x}.",
-        ("ord " * 400)[:length],
-        "en to tre fire fem seks en to tre fire fem seks en to tre fire fem",
-        "Line one.\r\n\r\nLine two [3] ends here. Yes! \"Quoted.\" Done?",
-    ]
+_TEXTS = (
+    "",
+    "Samme linje her igen og igen.\n" * 12,
+    "Det er en god dag [1], og vi skal ud at gå tur.\nSolen skinner... Der er mange!\n\n"
+    "- punkt et\n• punkt to\nLorem ipsum dolor sit amet javascript …",
+    "数据处理流水线的测试文本。 Og lidt dansk tekst her.",
+    "𝔘𝔫𝔦𝔠𝔬𝔡𝔢 𝕋𝕖𝕩𝕥 🚀 and café́ ascii. Terms of use apply {x}.",
+    "ord " * 400,
+    "en to tre fire fem seks en to tre fire fem seks en to tre fire fem",
+    "Line one.\r\n\r\nLine two [3] ends here. Yes! \"Quoted.\" Done?",
+)
+
+
+def _text_batch(dev, length=1024, rows=8, fill=False):
+    """The texts above, one a row in turn; with ``fill`` each is repeated
+    (line by line) up to three quarters of the row."""
     cps = np.zeros((rows, length), np.int32)
     lens = np.zeros(rows, np.int32)
-    for i, t in enumerate(texts[:rows]):
+    for i in range(rows):
+        t = _TEXTS[i % len(_TEXTS)]
+        if fill and t:
+            t = ("\n".join([t] * (3 * length // (4 * len(t)) + 1)))[: 3 * length // 4]
         cp = [ord(c) for c in t][:length]
         cps[i, : len(cp)] = cp
         lens[i] = len(cp)
@@ -219,6 +264,54 @@ def test_chain_kernel_matches_plain_at_every_site(cuda, monkeypatch, impl):
                              "c4_post", "sentence_counts"}
     for passes in programs.values():
         _assert_chain_equal(scan.chain_scan(passes), scan.chain_scan_plain(passes))
+
+
+@pytest.mark.parametrize("length", [256, 512, 2048, 5000, 8192, 16384])
+def test_chain_kernel_matches_plain_at_every_site_and_geometry(cuda, length):
+    """Each call site's program on 64 rows: one CTA a row at 256, 512 and
+    2048 lanes, clusters at 8192 and 16384 and a ragged 5000; the
+    sorted-table programs at the same widths."""
+    cps, lens = _text_batch(cuda, length, rows=64, fill=True)
+    c4 = stats.C4Params(True, True, True, 5, 3, 1000, True, True, True, True)
+    programs = stats.chain_site_programs(cps, lens, (1, 2, 3), (2, 3, 4), (5, 6, 7, 8, 9, 10),
+                                         length, c4)
+    for name, passes in programs.items():
+        before = scan.LAUNCHES["chain_scan"]
+        _assert_chain_equal(scan.chain_scan(passes, site=name), scan.chain_scan_plain(passes))
+        assert scan.LAUNCHES["chain_scan"] == before + 1
+        width = scan._chain_plan(passes)[1][0].shape[1]
+        assert scan.CHAIN_SHAPE_LAUNCHES[(name, width)] >= 1
+
+
+def _many_taps(xs):
+    """A program whose first pass emits 25 tap-only streams, all tapped by a
+    reverse pass (two 11-dep preps, shift taps with fills), whose streams a
+    third pass taps again: 27 tapped streams, 5 operands a group."""
+    T, cg = scan.Tap, scan.chain_group
+    taps = [T(0, i, shift=i % 2, fill=-i) for i in range(25)]
+    return [
+        scan.chain_pass([scan.add_group(tuple(xs), emit="none") for _ in range(5)]),
+        scan.chain_pass([
+            cg("segmax", tuple(taps[:11]), prep=stats.sentence_cnt, n_ops=2),
+            cg("segmax", tuple(taps[11:22]), prep=stats.sentence_cnt, n_ops=2, emit="last"),
+            cg("add", tuple(taps[22:24]), prep=scan.sum2, n_ops=1),
+            cg("add", (taps[24],), prep=scan.over_50, n_ops=1, emit="none"),
+        ], reverse=True),
+        scan.chain_pass([scan.add_group((T(1, 0, shift=1, fill=3), T(1, 3, shift=1, fill=-2)))]),
+    ]
+
+
+@pytest.mark.parametrize("shape", [(64, 16384), (8, 2048), (5, 300)])
+def test_chain_kernel_global_taps_match_plain(cuda, shape):
+    """27 tapped streams do not fit shared memory at 2048 lanes a chunk:
+    their taps go through global memory, and the program stays exact (at
+    300 lanes they fit and stay on chip)."""
+    rng = np.random.default_rng(shape[1] + 5)
+    passes = _many_taps([_full_range(rng, shape, cuda) for _ in range(5)])
+    prog, _ = scan._chain_program(passes)
+    geo = scan.chain_geometry(shape[1], prog.n_keep, prog.n_stage)
+    assert (prog.n_keep, prog.n_stage) == (27, 5) and geo.tap_smem == (shape[1] <= 300)
+    _assert_chain_equal(scan.chain_scan(passes), scan.chain_scan_plain(passes))
 
 
 def test_chain_wrapper_refuses_what_the_kernel_does_not_take(cuda):

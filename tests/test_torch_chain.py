@@ -345,3 +345,99 @@ def test_site_programs_are_the_sites_own(monkeypatch):
             assert _signature(passes) == _signature(programs[site]), site
     for site in ("structure", "gopher_quality", "gopher_rep", "c4_trim", "c4_sentences"):
         _assert_same_operands(launched[site][0], programs[site])
+
+
+# --- the encoding cache and the launch geometry ------------------------------------
+
+
+def _site_programs(batch):
+    cps, lens = batch
+    c4 = ts.C4Params(True, True, True, 5, 3, 1000, True, True, True, True)
+    stop = tuple(ts.hash_string(w) for w in ("og", "en", "the"))
+    return ts.chain_site_programs(cps, lens, stop, (2, 3, 4), (5, 6, 7, 8, 9, 10), 256, c4)
+
+
+def test_cached_encoding_is_a_fresh_encoding():
+    """Every site's program is encoded once: the cached code equals a fresh
+    _chain_code of the same program, its external operands are the plan's,
+    and the same site's program on another batch hits the same entry with
+    that batch's operands."""
+    first = _site_programs(_site_batch())
+    again = _site_programs(_site_batch())
+    for name, passes in first.items():
+        prog, ext = scan._chain_program(passes)
+        plan, plan_ext, out_modes, n_scratch, layout = scan._chain_plan(passes)
+        assert prog.code == scan._chain_code(plan, len(out_modes)), name
+        assert len(ext) == len(plan_ext) and all(a is b for a, b in zip(ext, plan_ext)), name
+        assert (prog.n_scratch, prog.layout) == (n_scratch, layout), name
+        tapped = {d[1] for p in plan for gp in p["groups"] for d in gp["deps"] if d[0] == "s"}
+        assert prog.n_keep == len(tapped), name
+        prog2, ext2 = scan._chain_program(again[name])
+        assert prog2 is prog, name
+        assert all(a is b for a, b in zip(ext2, scan._chain_plan(again[name])[1])), name
+
+
+def _generic_cpu(rng, shape, fill=-7, shift=1, prep=scan.low_bit, emit="scan"):
+    x = _t(_full_range(rng, shape))
+    r = _t((rng.random(shape) < 0.05).astype(np.int32))
+    T, cg = scan.Tap, scan.chain_group
+    return [
+        scan.chain_pass([scan.affine_group(r, (x,), emit="none"), scan.add_group((x, r))]),
+        scan.chain_pass([
+            cg("copy", (T(0, 0, shift=shift, fill=fill), T(0, 1))),
+            cg("add", (T(0, 2),), prep=prep, n_ops=1, emit=emit),
+        ], reverse=True),
+    ]
+
+
+def test_programs_that_differ_get_their_own_entries():
+    """A program differing in one fill, shift, prep or emit mode is a new
+    cache entry; the same structure on new operands is not."""
+    rng = np.random.default_rng(3)
+    base = scan._chain_program(_generic_cpu(rng, (2, 40)))[0]
+    assert scan._chain_program(_generic_cpu(rng, (3, 50)))[0] is base
+    variants = [dict(fill=-8), dict(shift=0), dict(prep=scan.twice), dict(emit="none")]
+    progs = [scan._chain_program(_generic_cpu(rng, (2, 40), **v))[0] for v in variants]
+    assert len({id(p) for p in progs + [base]}) == 5
+    assert len({tuple(p.code) for p in progs + [base]}) == 5
+
+
+def _covered(geo, length):
+    """Lanes each (chunk, thread, lane index) touches: the staging and
+    output mapping (lane t + r * threads) and the scan's (walk positions
+    t * items + j), both once over the chunk."""
+    t = np.arange(geo.threads)[:, None]
+    r = np.arange(geo.items)[None, :]
+    strided = np.sort((t + r * geo.threads).ravel())
+    blocked = np.sort((t * geo.items + r).ravel())
+    assert np.array_equal(strided, np.arange(geo.chunk))
+    assert np.array_equal(blocked, np.arange(geo.chunk))
+    lanes = (np.arange(geo.cluster)[:, None] * geo.chunk + strided[None, :]).ravel()
+    return lanes[lanes < length]
+
+
+def test_geometry_covers_every_lane_once_within_shared_memory():
+    """For every width the chain takes (and ragged ones), the geometry's
+    chunks cover each lane of a row exactly once: one CTA of two lanes a
+    thread up to 2048 lanes, beyond that a cluster of at most 8 CTAs of
+    eight lanes a thread, never more than 1024 threads.  The largest site
+    program (structure with hashes: 6 tapped streams, 3 operands) keeps its
+    taps in shared memory at every width, within 227 KiB; a program with
+    32 tapped streams falls back to global taps where they do not fit."""
+    for length in (0, 1, 31, 100, 256, 512, 1000, 1024, 1025, 2048, 2049, 5000, 8192, 16383,
+                   16384):
+        for n_keep, n_stage in ((6, 3), (0, 2), (32, 5)):
+            geo = scan.chain_geometry(length, n_keep, n_stage)
+            lanes = _covered(geo, length)
+            assert np.array_equal(np.sort(lanes), np.arange(length))
+            assert geo.smem_bytes <= scan.CHAIN_SMEM_LIMIT
+            assert geo.smem_bytes == 4 * scan._smem_words(
+                n_stage, n_keep if geo.tap_smem else 0, geo.threads, geo.chunk)
+            assert geo.threads % 32 == 0 and geo.threads <= 1024 and 1 <= geo.cluster <= 8
+            assert (geo.cluster > 1) == (length > 2048)
+            assert geo.items <= (2 if length <= 2048 else 8)
+            if (n_keep, n_stage) == (6, 3):
+                assert geo.tap_smem
+    assert scan.chain_geometry(512, 6, 3)[:4] == (1, 256, 2, 512)
+    assert scan.chain_geometry(8192, 6, 3)[:4] == (8, 128, 8, 1024)
+    assert not scan.chain_geometry(16384, 32, 5).tap_smem  # 37 skewed rows of 2048 lanes

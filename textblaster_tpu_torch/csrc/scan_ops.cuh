@@ -1,5 +1,5 @@
-// Scan ops, tile constants and the tile scan shared by scan.cu, fused.cu
-// and chain.cu.
+// Scan ops shared by scan.cu, fused.cu and chain.cu, and the tile constants
+// and tile scan of scan.cu and fused.cu.
 //
 // Every op composes int32 streams in uint32 arithmetic, which gives the
 // int32 wraparound of the JAX package's ops (signed overflow is undefined

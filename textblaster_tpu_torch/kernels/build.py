@@ -137,8 +137,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.tb_fused_scan.restype = i
     elif name == "chain":
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-        lib.tb_chain_scan.argtypes = [ip, i, pp, i, pp, i, i, i, p]
-        lib.tb_chain_scan.restype = i
+        lib.tb_chain_encode.argtypes = [ip, i, i, i, ip]
+        lib.tb_chain_encode.restype = i
+        lib.tb_chain_launch.argtypes = [i, pp, i, pp, i, i, i, i, i, i, i, p]
+        lib.tb_chain_launch.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

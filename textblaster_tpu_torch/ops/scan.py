@@ -40,14 +40,18 @@ import torch
 from .device import shift_scan_tuple
 
 __all__ = [
+    "CHAIN_SHAPE_LAUNCHES",
     "CHAIN_SITE_LAUNCHES",
+    "ChainGeometry",
     "LAUNCHES",
+    "SHAPE_LAUNCHES",
     "PREPS",
     "Tap",
     "add_group",
     "affine_group",
     "affine_hash_scan",
     "affine_hash_scan_plain",
+    "chain_geometry",
     "chain_group",
     "chain_pass",
     "chain_prep",
@@ -70,9 +74,12 @@ __all__ = [
 
 #: Kernel launches on the card, by kernel name.
 LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0, "fused_scan": 0, "chain_scan": 0}
+#: The same launches by ``(kernel, rows, width)`` (``chain_scan`` below).
+SHAPE_LAUNCHES: Dict[Tuple[str, int, int], int] = {}
 #: The ``chain_scan`` launches of LAUNCHES by call site (the ``site`` its
-#: caller names).
+#: caller names), and by ``(site, width)``.
 CHAIN_SITE_LAUNCHES: Dict[str, int] = {}
+CHAIN_SHAPE_LAUNCHES: Dict[Tuple[Optional[str], int], int] = {}
 
 #: The JAX fused kernel's lane cap (``pallas_scan._FUSED_MAX_LANES``), kept
 #: so that every bucket takes the JAX package's schedule.
@@ -165,6 +172,11 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(kernel: str, rows: int, width: int) -> None:
+    LAUNCHES[kernel] += 1
+    SHAPE_LAUNCHES[(kernel, rows, width)] = SHAPE_LAUNCHES.get((kernel, rows, width), 0) + 1
+
+
 def affine_hash_scan(
     m: torch.Tensor, accs: Sequence[torch.Tensor]
 ) -> Tuple[torch.Tensor, ...]:
@@ -198,7 +210,7 @@ def affine_hash_scan(
             _stream(m),
         )
     check(err, "affine_hash_scan")
-    LAUNCHES["affine_scan"] += 1
+    _count("affine_scan", rows, length)
     return outs
 
 
@@ -223,7 +235,7 @@ def dfa_compose_scan(fns: torch.Tensor, n_states: int) -> torch.Tensor:
             fns.data_ptr(), out.data_ptr(), rows, length, n_states, _stream(fns)
         )
     check(err, "dfa_compose_scan")
-    LAUNCHES["dfa_scan"] += 1
+    _count("dfa_scan", rows, length)
     return out
 
 
@@ -396,7 +408,7 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
             in_ptrs, len(xs), out_ptrs, len(outs), rows, length, _stream(xs[0]),
         )
     check(err, "fused_scan")
-    LAUNCHES["fused_scan"] += 1
+    _count("fused_scan", rows, length)
     return _regroup(groups, outs)
 
 
@@ -767,54 +779,237 @@ def _chain_code(plan, n_out: int) -> List[int]:
     return code
 
 
+# --- the launch: each program encoded once ---------------------------------------
+
+#: Dynamic shared memory one CTA may have on an H100 (227 KiB).
+CHAIN_SMEM_LIMIT = 232448
+
+
+class ChainGeometry(NamedTuple):
+    """How ``csrc/chain.cu`` lays a ``[rows, length]`` launch out: a row is
+    ``cluster`` chunks of ``chunk = threads * items`` lanes, one CTA each
+    (a thread block cluster when ``cluster > 1``).  ``tap_smem``: the
+    tapped streams stay in shared memory (else they go through global
+    memory); ``smem_bytes``: a CTA's dynamic shared memory."""
+
+    cluster: int
+    threads: int
+    items: int
+    chunk: int
+    tap_smem: bool
+    smem_bytes: int
+
+
+def _smem_words(n_stage: int, n_keep_rows: int, threads: int, chunk: int) -> int:
+    # chain.cu smem_words(): staged operands and keep rows (one skewed chunk
+    # each), two buffers of warp totals, two of the chunk aggregate, the
+    # chunk's carry and the walk's total.
+    skew_len = chunk + chunk // 32 + 1
+    return ((n_stage + n_keep_rows) * skew_len + 2 * (threads // 32) * CHAIN_MAX_OPS
+            + 4 * CHAIN_MAX_OPS)
+
+
+def chain_geometry(length: int, n_keep: int, n_stage: int) -> ChainGeometry:
+    """The launch geometry of a program with ``n_keep`` tapped streams and
+    at most ``n_stage`` operands per group over rows of ``length`` lanes:
+
+    * ``length <= 2048``: one CTA per row, two lanes a thread (up to 1024
+      threads).  A batch of 64 such rows leaves SMs idle, so a row's time
+      is its latency, and the more warps share it the shorter it is;
+    * wider: a cluster of ``min(8, ceil(length / 1024))`` CTAs per row,
+      each a contiguous chunk of at least ``length / cluster`` lanes, eight
+      lanes a thread (64 rows of 8192 lanes are 512 CTAs, which fill the
+      card).
+
+    The tapped streams stay in shared memory when they fit a CTA's 227
+    KiB, else they go through global memory; raises if even the staged
+    operands do not fit."""
+    cluster, lanes = (1, 2) if length <= 2048 else (min(8, -(-length // 1024)), 8)
+    per_cta = max(1, -(-length // cluster))
+    threads = min(1024, -(-per_cta // (32 * lanes)) * 32)
+    items = -(-per_cta // threads)
+    chunk = threads * items
+    for tap_smem in (True, False):
+        smem = 4 * _smem_words(n_stage, n_keep if tap_smem else 0, threads, chunk)
+        if smem <= CHAIN_SMEM_LIMIT:
+            return ChainGeometry(cluster, threads, items, chunk, tap_smem, smem)
+    raise ValueError(f"chain_scan: a row of {length} lanes does not fit the kernel's shared memory")
+
+
+class _ChainProgram:
+    """A program's plan, encoded once: its ``_chain_code``, the output
+    slots and their buffers, the tapped streams and widest group, the C
+    handle (on first launch) and the geometry per row width."""
+
+    __slots__ = ("code", "n_ext", "n_slots", "n_scratch", "layout", "out_pos", "n_scan",
+                 "n_last", "n_keep", "n_stage", "handle", "geometry", "ext_t", "slot_t")
+
+    def __init__(self, passes: Sequence[dict]):
+        plan, ext, out_modes, n_scratch, layout = _chain_plan(passes)
+        n_groups = sum(len(p["groups"]) for p in plan)
+        n_deps = sum(len(gp["deps"]) for p in plan for gp in p["groups"])
+        n_slots = len(out_modes) + n_scratch
+        limits = ((len(plan), CHAIN_MAX_PASSES, "passes"), (n_groups, CHAIN_MAX_GROUPS, "groups"),
+                  (n_deps, CHAIN_MAX_DEPS, "deps"), (len(ext), CHAIN_MAX_EXT, "external operands"),
+                  (n_slots, CHAIN_MAX_SLOTS, "streams"))
+        for n, most, what in limits:
+            if n > most:
+                raise ValueError(f"chain_scan: {n} {what}, the kernel takes {most}")
+        self.code = _chain_code(plan, len(out_modes))
+        self.n_ext, self.n_slots, self.n_scratch, self.layout = len(ext), n_slots, n_scratch, layout
+        # Each output's place: emit "scan" streams in one [n_scan, B, L]
+        # buffer, emit "last" carries in one [n_last, B, 1] buffer.
+        counts = {"scan": 0, "last": 0}
+        self.out_pos = []
+        for m in out_modes:
+            self.out_pos.append((m == "last", counts[m]))
+            counts[m] += 1
+        self.n_scan, self.n_last = counts["scan"], counts["last"]
+        tapped = {d[1] for p in plan for gp in p["groups"] for d in gp["deps"] if d[0] == "s"}
+        self.n_keep = len(tapped)
+        self.n_stage = max(gp["spec"][2] for p in plan for gp in p["groups"])
+        self.handle: Optional[int] = None
+        self.geometry: Dict[int, ChainGeometry] = {}
+        self.ext_t = ctypes.c_void_p * self.n_ext
+        self.slot_t = ctypes.c_void_p * max(1, n_slots)
+
+    def encode(self, lib) -> int:
+        """The C handle of the validated program (parsed once)."""
+        if self.handle is None:
+            info = (ctypes.c_int * 2)()
+            h = lib.tb_chain_encode((ctypes.c_int * len(self.code))(*self.code), len(self.code),
+                                    self.n_ext, self.n_slots, info)
+            if h < 0:
+                raise ValueError(f"chain_scan: the kernel refused the program (CUDA error {-h})")
+            if (info[0], info[1]) != (self.n_keep, self.n_stage):
+                raise RuntimeError("chain_scan: the kernel and the wrapper count the program's "
+                                   "streams differently")
+            self.handle = h
+        return self.handle
+
+
+#: Structure key -> encoded program (see :func:`_chain_key`).
+_CHAIN_PROGRAMS: Dict[tuple, _ChainProgram] = {}
+
+
+def _chain_key(passes: Sequence[dict]):
+    """``(key, ext)``: the program's structure -- per pass the direction,
+    per group the kind, prep, emit mode, states, operand count and deps
+    (taps with their shift and fill; external operands by their index in
+    first-use order) -- and the external tensors in that order, deduplicated
+    by identity as :func:`_chain_plan` does."""
+    ext: List[torch.Tensor] = []
+    seen: Dict[int, int] = {}
+    key = []
+    for p in passes:
+        groups = []
+        for g in p["groups"]:
+            deps = []
+            for d in g["xs"]:
+                if isinstance(d, Tap):
+                    deps.append(d)
+                else:
+                    i = seen.get(id(d))
+                    if i is None:
+                        i = seen[id(d)] = len(ext)
+                        ext.append(d)
+                    deps.append(i)
+            groups.append((g["kind"], g.get("prep"), g.get("emit", "scan"), g.get("n_states"),
+                           g.get("n_ops"), tuple(deps)))
+        key.append((bool(p.get("reverse", False)), tuple(groups)))
+    return tuple(key), ext
+
+
+def _cached_program(key: tuple, passes: Sequence[dict]) -> _ChainProgram:
+    """The encoding cached under ``key``; a new structure is planned and
+    validated exactly as :func:`_chain_plan` and :func:`_chain_code` do
+    before it is cached."""
+    prog = _CHAIN_PROGRAMS.get(key)
+    if prog is None:
+        prog = _CHAIN_PROGRAMS[key] = _ChainProgram(passes)
+    return prog
+
+
+def _chain_program(passes: Sequence[dict]) -> Tuple[_ChainProgram, List[torch.Tensor]]:
+    """The cached encoding of ``passes`` and its external tensors."""
+    key, ext = _chain_key(passes)
+    return _cached_program(key, passes), ext
+
+
+def _check_ext(ext: Sequence[torch.Tensor]) -> None:
+    """:func:`_check` for the chain's operands, with a fast path for the
+    common case."""
+    shape, dev = ext[0].shape, ext[0].get_device()
+    if len(shape) == 2:
+        for t in ext:
+            if (t.dtype is not torch.int32 or t.shape != shape or not t.is_contiguous()
+                    or t.get_device() != dev):
+                break
+        else:
+            return
+    _check("chain_scan", ext)
+
+
 def chain_scan(passes: Sequence[dict], site: Optional[str] = None
                ) -> List[List[Tuple[torch.Tensor, ...]]]:
     """Evaluate a dependency-chained multi-pass program in ONE kernel
     launch.  Returns, per pass, one tuple of int32 streams per group
     (``[B, L]`` for emit="scan", ``[B, 1]`` for emit="last", empty for
     emit="none").  ``site`` names the caller in
-    :data:`CHAIN_SITE_LAUNCHES`.
+    :data:`CHAIN_SITE_LAUNCHES` and :data:`CHAIN_SHAPE_LAUNCHES`.
 
     Every external operand is a contiguous int32 ``[B, L]`` tensor on one
     device, every prep is registered (:func:`chain_prep`), and the program
-    fits the kernel's limits (``CHAIN_MAX_*``).  Callers gate on
-    :func:`chain_scan_ok` first."""
+    fits the kernel's limits (``CHAIN_MAX_*``).  A program's structure is
+    planned, validated and encoded once (:func:`_chain_program`); a call
+    then allocates the outputs and launches with the geometry of
+    :func:`chain_geometry`.  Callers gate on :func:`chain_scan_ok` first."""
     passes = list(passes)
-    plan, ext, out_modes, n_scratch, layout = _chain_plan(passes)
-    dev = ext[0].device
-    if dev.type == "cpu":
+    key, ext = _chain_key(passes)
+    if not ext or ext[0].device.type == "cpu":
         return chain_scan_plain(passes)
+    dev = ext[0].device
     if dev.type != "cuda":
         raise ValueError(f"chain_scan: unsupported device {dev}")
-    _check("chain_scan", ext)
-    n_groups = sum(len(p["groups"]) for p in plan)
-    n_deps = sum(len(gp["deps"]) for p in plan for gp in p["groups"])
-    n_slots = len(out_modes) + n_scratch
-    limits = ((len(plan), CHAIN_MAX_PASSES, "passes"), (n_groups, CHAIN_MAX_GROUPS, "groups"),
-              (n_deps, CHAIN_MAX_DEPS, "deps"), (len(ext), CHAIN_MAX_EXT, "external operands"),
-              (n_slots, CHAIN_MAX_SLOTS, "streams"))
-    for n, most, what in limits:
-        if n > most:
-            raise ValueError(f"chain_scan: {n} {what}, the kernel takes {most}")
-    code = _chain_code(plan, len(out_modes))
-    from ..kernels.build import check, load
-
+    prog = _cached_program(key, passes)
+    _check_ext(ext)
     rows, length = ext[0].shape
-    outs = [torch.empty((rows, 1) if m == "last" else (rows, length), dtype=torch.int32, device=dev)
-            for m in out_modes]
-    scratch = (torch.empty((n_scratch, rows, length), dtype=torch.int32, device=dev)
-               if n_scratch else None)
-    slots = [o.data_ptr() for o in outs] + [scratch[j].data_ptr() for j in range(n_scratch)]
+    geo = prog.geometry.get(length)
+    if geo is None:
+        geo = prog.geometry[length] = chain_geometry(length, prog.n_keep, prog.n_stage)
+    scan_buf = last_buf = None
+    if prog.n_scan:
+        scan_buf = torch.empty((prog.n_scan, rows, length), dtype=torch.int32, device=dev)
+    if prog.n_last:
+        last_buf = torch.empty((prog.n_last, rows, 1), dtype=torch.int32, device=dev)
+    scans = scan_buf.unbind(0) if scan_buf is not None else ()
+    lasts = last_buf.unbind(0) if last_buf is not None else ()
+    outs = [lasts[i] if is_last else scans[i] for is_last, i in prog.out_pos]
     if rows:
+        from ..kernels.build import check, load
+
         lib = load("chain")
-        with torch.cuda.device(dev):
-            err = lib.tb_chain_scan(
-                (ctypes.c_int * len(code))(*code), len(code),
-                (ctypes.c_void_p * len(ext))(*(x.data_ptr() for x in ext)), len(ext),
-                (ctypes.c_void_p * len(slots))(*slots), len(slots),
-                rows, length, _stream(ext[0]),
-            )
+        handle = prog.encode(lib)
+        plane = 4 * rows * length
+        scan0 = scan_buf.data_ptr() if scan_buf is not None else 0
+        last0 = last_buf.data_ptr() if last_buf is not None else 0
+        ptrs = [last0 + 4 * rows * i if is_last else scan0 + plane * i
+                for is_last, i in prog.out_pos]
+        if not geo.tap_smem and prog.n_scratch:
+            ws = torch.empty((prog.n_scratch, rows, length), dtype=torch.int32, device=dev)
+            ptrs += [ws.data_ptr() + plane * j for j in range(prog.n_scratch)]
+        else:
+            ptrs += [None] * prog.n_scratch
+        args = (handle, prog.ext_t(*[x.data_ptr() for x in ext]), prog.n_ext,
+                prog.slot_t(*ptrs), prog.n_slots, rows, length, geo.cluster, geo.threads,
+                geo.items, int(geo.tap_smem), _stream(ext[0]))
+        if dev.index == torch.cuda.current_device():
+            err = lib.tb_chain_launch(*args)
+        else:
+            with torch.cuda.device(dev):
+                err = lib.tb_chain_launch(*args)
         check(err, "chain_scan")
         LAUNCHES["chain_scan"] += 1
         CHAIN_SITE_LAUNCHES[site] = CHAIN_SITE_LAUNCHES.get(site, 0) + 1
-    return [[tuple(outs[s] for s in g_slots) for g_slots in p_layout] for p_layout in layout]
+        CHAIN_SHAPE_LAUNCHES[(site, length)] = CHAIN_SHAPE_LAUNCHES.get((site, length), 0) + 1
+    return [[tuple(outs[s] for s in g_slots) for g_slots in p_layout] for p_layout in prog.layout]

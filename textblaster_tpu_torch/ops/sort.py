@@ -8,6 +8,10 @@ tensor :func:`sort2` runs :func:`sort2_plain`, the int64-packed sort of the
 JAX package's off-TPU path (``pallas_sort.py:327-333``), and :func:`sort3`
 runs :func:`sort3_plain`, three stable sorts.
 
+Up to ``SMEM_WIDTH`` keys a row, ``sort2``'s kernel holds the keys in
+registers (``csrc/sort.cu``; the CPU tests rehearse its index arithmetic in
+numpy); wider rows take the shared-memory network with global passes.
+
 ``sort3`` has no caller on the port's path, as in the JAX package.
 """
 
@@ -17,14 +21,17 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "sort2", "sort2_plain", "sort3", "sort3_plain", "SMEM_WIDTH", "SMEM_WIDTH3"]
+__all__ = ["LAUNCHES", "SHAPE_LAUNCHES", "SMEM_WIDTH", "SMEM_WIDTH3", "sort2", "sort2_plain",
+           "sort3", "sort3_plain"]
 
 #: Kernel launches on the card (one per call on CUDA).
 LAUNCHES: Dict[str, int] = {"sort2": 0, "sort3": 0}
+#: The same launches by ``(kernel, rows, width)``.
+SHAPE_LAUNCHES: Dict[Tuple[str, int, int], int] = {}
 
-#: Widest padded row the kernel sorts in one CTA's shared memory, per key
-#: count; wider rows take its global-memory passes and need a packed scratch
-#: buffer (8 bytes an element for two keys, 16 for three).
+#: Widest padded row the kernels sort on chip (sort2 in registers, sort3 in
+#: shared memory); wider rows take global-memory passes and need a packed
+#: scratch buffer (8 bytes an element for two keys, 16 for three).
 SMEM_WIDTH = 16384
 SMEM_WIDTH3 = 8192
 
@@ -81,20 +88,17 @@ def sort2(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     from ..kernels.build import check, load
 
     lib = load("sort")
-    with torch.cuda.device(k1.device):
-        err = lib.tb_sort2(
-            k1.data_ptr(),
-            k2.data_ptr(),
-            o1.data_ptr(),
-            o2.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            rows,
-            m,
-            mp,
-            torch.cuda.current_stream(k1.device).cuda_stream,
-        )
+    args = (k1.data_ptr(), k2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, rows, m, mp,
+            torch.cuda.current_stream(k1.device).cuda_stream)
+    if k1.device.index == torch.cuda.current_device():
+        err = lib.tb_sort2(*args)
+    else:
+        with torch.cuda.device(k1.device):
+            err = lib.tb_sort2(*args)
     check(err, "sort2")
     LAUNCHES["sort2"] += 1
+    SHAPE_LAUNCHES[("sort2", rows, m)] = SHAPE_LAUNCHES.get(("sort2", rows, m), 0) + 1
     return o1, o2
 
 
@@ -144,4 +148,5 @@ def sort3(
         )
     check(err, "sort3")
     LAUNCHES["sort3"] += 1
+    SHAPE_LAUNCHES[("sort3", rows, m)] = SHAPE_LAUNCHES.get(("sort3", rows, m), 0) + 1
     return outs
