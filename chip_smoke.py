@@ -12,7 +12,10 @@ Phases (any failure exits non-zero without the final result line):
    (``sm_90a``), one compiler per source, all at once.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, with ``torch.equal`` (exact: every value is int32), at the
-   shapes the main path gives it: ``fused_scan`` with each of its four call
+   shapes the main path gives it: ``affine_scan`` (k = 1, 2) and
+   ``dfa_scan`` (1..8 states, maps with stray nibbles above them) at every
+   edge of ``scan_geometry`` (1 .. 70000 lanes on 1, 7, 64 and 65 rows),
+   on aligned tensors and offset views; ``fused_scan`` with each of its four call
    sites' group lists and two generic lists, also beyond its 16384-lane
    gate; ``chain_scan`` with every call site's program, built by the sites'
    own builders on batches of corpus documents of each bucket (both C4
@@ -24,8 +27,9 @@ Phases (any failure exits non-zero without the final result line):
    beside the bound (the larger of the bytes at 3.35 TB/s and the integer
    operations at 67 T/s): the kernel and, where one exists, the single
    PyTorch call computing the same function, each replayed from a CUDA
-   graph (device time); the wrapper's eager call (host cost included); and
-   the plain version.  ``sort2`` also at edge widths (1 .. 16384 keys,
+   graph of 10 calls (device time); the wrapper's eager call (host cost
+   included); and the plain version.  The per-scan kernels are timed in
+   every variant the main path launches (k = 1, 2; 4 and 5 states).  ``sort2`` also at edge widths (1 .. 16384 keys,
    ragged) on 1, 7 and 320 rows; ``chain_scan`` also on 600 short rows
    ([600, 256]) and with a ragged cluster ([64, 5000]).
 4. Main path: a seeded synthetic Danish/English corpus of >= 20,000
@@ -46,8 +50,9 @@ Phases (any failure exits non-zero without the final result line):
    shape, and per chain site and width) are set to 0 just before each run
    and read just after.
 5. Launches per shape: the first chain run's launches of every kernel by
-   shape, each beside the kernel's time at that shape (``sort2`` is timed
-   at every shape the run launched it at), and per kernel the sum of
+   shape and variant, each beside the kernel's time at that shape
+   (``sort2`` and the per-scan kernels are timed at every shape and
+   variant the run launched them at), and per kernel the sum of
    launches x (kernel ms - bound ms), the device time the kernel loses on
    the main path against its bound.
 6. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
@@ -250,11 +255,13 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time of one call of ``fn``: the call is captured once in a
-    CUDA graph and replayed ``iters`` times between CUDA events, so the
-    wrapper's host cost (checks, ctypes, allocation) is not in the figure.
-    Replays reuse the same inputs, which may stay in the 50 MB L2."""
+def graph_ms(fn, iters: int = 20, per_graph: int = 10) -> float:
+    """Device time of one call of ``fn``: ``per_graph`` calls are captured
+    in one CUDA graph, replayed ``iters`` times between CUDA events, and the
+    time is divided by the calls.  Neither the wrapper's host cost (checks,
+    ctypes, allocation) nor the graph launch's own floor, which one call a
+    graph leaves in the figure for a short kernel, is counted.  Replays
+    reuse the same inputs, which may stay in the 50 MB L2."""
     import torch
 
     side = torch.cuda.Stream()
@@ -264,7 +271,8 @@ def graph_ms(fn, iters: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        fn()
+        for _ in range(per_graph):
+            fn()
     for _ in range(2):
         graph.replay()
     torch.cuda.synchronize()
@@ -274,7 +282,8 @@ def graph_ms(fn, iters: int = 20) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    del graph
+    return start.elapsed_time(end) / (iters * per_graph)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -284,6 +293,33 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     t_ops = n_ops / OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def packed_maps(rng, shape, n_states, dev, stray=False):
+    """Seeded nibble-packed DFA maps on ``dev``: every nibble below
+    ``n_states`` a state; with ``stray`` the nibbles at or above it hold
+    anything (the op clears them, except in a one-lane row)."""
+    import numpy as np
+    import torch
+
+    out = rng.integers(0, 2**32, size=shape, dtype=np.int64) if stray else np.zeros(shape, np.int64)
+    for s in range(n_states):
+        out &= ~(15 << (4 * s))
+        out |= rng.integers(0, n_states, size=shape, dtype=np.int64) << (4 * s)
+    return torch.from_numpy(out.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def scan_cost(kind, rows, width, variant):
+    """(bytes, operations) of one per-scan kernel call: ``affine_scan``
+    with ``variant`` = k accumulators reads m and k streams and writes k,
+    one multiply for m and a multiply-add per accumulator per element;
+    ``dfa_scan`` with ``variant`` = n_states reads and writes one stream,
+    per element and state a nibble extract (shift, mask) and a
+    lookup-insert (shift, mask, or)."""
+    n = rows * width
+    if kind == "affine_scan":
+        return 4.0 * n * (1 + 2 * variant), 1.0 * n * (1 + 2 * variant)
+    return 8.0 * n, 5.0 * n * variant
 
 
 def fused_site_lists(full_range, packed_maps, shape):
@@ -454,36 +490,55 @@ def kernel_phase(corpus):
             rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64).astype(np.int32)
         ).to(dev)
 
-    def packed_maps(shape, n_states):
-        out = np.zeros(shape, dtype=np.int64)
-        for s in range(n_states):
-            out |= rng.integers(0, n_states, size=shape, dtype=np.int64) << (4 * s)
-        return torch.from_numpy(out.astype(np.uint32).view(np.int32)).to(dev)
+    def packed_maps_(shape, n_states):
+        return packed_maps(rng, shape, n_states, dev)
 
     def max_err(got, want):
         return max((int((g.long() - w.long()).abs().max()) if g.numel() else 0
                     for g, w in zip(got, want)), default=0)
 
+    def offset_view(t):
+        # The same values in a contiguous view 4 bytes past an aligned base:
+        # the kernel takes its scalar loads and stores.
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
     errs = {"affine_scan": 0, "dfa_scan": 0, "sort2": 0}
     per_shape = []
-    scan_shapes = [(64, n) for n in (512, 2048, 8192, 32768, 65536)] + [(37, 1000)]
+    # affine_scan and dfa_scan at every edge of scan_geometry (one warp per
+    # row to 512 lanes, one CTA to 8192, clusters beyond, segments beyond
+    # 65536) on 1, 7, 64 and 65 rows, which take in every main-path shape;
+    # k = 1 and 2 and every n_states, on maps with stray nibbles above
+    # n_states; on aligned tensors and on offset views (scalar accesses).
+    # Their own generator, so that the other kernels' inputs stay as they were.
+    srng = np.random.default_rng(SEED + 2)
+    scan_widths = [1, 31, 32, 511, 512, 513, 2047, 2048, 8192, 8193, 16384, 32768, 65536, 70000]
+    scan_shapes = [(r, n) for n in scan_widths for r in (1, 7, 64, 65)] + [(37, 1000)]
     for shape in scan_shapes:
-        m, a1, a2 = full_range(shape), full_range(shape), full_range(shape)
-        for accs in ((a1,), (a1, a2)):
-            got = scan.affine_hash_scan(m, accs)
-            torch.cuda.synchronize()
-            want = scan.affine_hash_scan_plain(m, accs)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                fail(f"affine_scan differs from its plain version at {shape} k={len(accs)}")
-            errs["affine_scan"] = max(errs["affine_scan"], max_err(got, want))
-        for ns in (4, 5, 8):
-            f = packed_maps(shape, ns)
-            got = scan.dfa_compose_scan(f, ns)
-            torch.cuda.synchronize()
-            want = scan.dfa_compose_scan_plain(f, ns)
-            if not torch.equal(got, want):
-                fail(f"dfa_scan differs from its plain version at {shape} n_states={ns}")
-            errs["dfa_scan"] = max(errs["dfa_scan"], max_err((got,), (want,)))
+        m, a1, a2 = (torch.from_numpy(srng.integers(-(2**31), 2**31, size=shape, dtype=np.int64)
+                                      .astype(np.int32)).to(dev) for _ in range(3))
+        for view_name, view in (("aligned", lambda t: t), ("offset", offset_view)):
+            for accs in ((a1,), (a1, a2)):
+                mv, av = view(m), tuple(view(a) for a in accs)
+                got = scan.affine_hash_scan(mv, av)
+                torch.cuda.synchronize()
+                want = scan.affine_hash_scan_plain(mv, av)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"affine_scan differs from its plain version at {shape} k={len(accs)} "
+                         f"({view_name})")
+                errs["affine_scan"] = max(errs["affine_scan"], max_err(got, want))
+            for ns in range(1, 9):
+                f = view(packed_maps(srng, shape, ns, dev, stray=True))
+                got = scan.dfa_compose_scan(f, ns)
+                torch.cuda.synchronize()
+                want = scan.dfa_compose_scan_plain(f, ns)
+                if not torch.equal(got, want):
+                    fail(f"dfa_scan differs from its plain version at {shape} n_states={ns} "
+                         f"({view_name})")
+                errs["dfa_scan"] = max(errs["dfa_scan"], max_err((got,), (want,)))
+        del m, a1, a2
     # sort2 rows as the main path stacks its 64-row batches: 2 jobs (line and
     # paragraph tables, widths max_lines), 4 and 5 jobs (n-gram tables,
     # widths max_words); 64 and 128 rows for the sort-table form's bucket
@@ -506,7 +561,7 @@ def kernel_phase(corpus):
     errs["fused_scan"] = 0
     fused_shapes = [(64, n) for n in (512, 2048, 8192, 16384, 32768, 65536)] + [(37, 1000)]
     for shape in fused_shapes:
-        for name, make in fused_site_lists(full_range, packed_maps, shape).items():
+        for name, make in fused_site_lists(full_range, packed_maps_, shape).items():
             groups = make()
             got = scan.fused_scan(groups)
             torch.cuda.synchronize()
@@ -553,7 +608,7 @@ def kernel_phase(corpus):
         reset = torch.from_numpy((rng.random(shape) < 0.05).astype(np.int32)).to(dev)
         check_chain(f"probe program at {list(shape)}", scan.chain_probe_program(vals, reset))
         check_chain(f"generic program at {list(shape)}",
-                    generic_chain(full_range, packed_maps, shape, dev))
+                    generic_chain(full_range, packed_maps_, shape, dev))
     want_sites = {"structure", "structure_nohash", "gopher_quality", "gopher_rep",
                   "sorted_tables", "sorted_tables_rest", "c4_trim", "c4_sentences", "c4_post",
                   "sentence_counts"}
@@ -580,39 +635,38 @@ def kernel_phase(corpus):
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             fail(f"sort3 differs from its plain version at [64, {width}]")
         errs["sort3"] = max(errs["sort3"], max_err(got, want))
-    print(f"kernels exact: affine_scan and dfa_scan at {scan_shapes}, "
+    print(f"kernels exact: affine_scan (k = 1, 2) and dfa_scan (n_states 1..8) at "
+          f"{scan_shapes}, aligned and offset, "
           f"sort2 at {sort_shapes}, fused_scan at {fused_shapes}, chain_scan at "
           f"{sorted(chain_widths)} (sites {sorted(sites)} on batches {text_shapes}; probe and "
           f"generic at {generic_shapes}), sort3 at 64 x {sort3_widths}", flush=True)
 
     # Timings: per shape (written to the JSON file), and the representative
     # main-path call per kernel (the kernels line).
-    def time_scan(shape):
-        m, a1, a2 = full_range(shape), full_range(shape), full_range(shape)
-        f = packed_maps(shape, 5)
-        b, n = shape
-        return {
-            # k=2: reads m, a1, a2 and writes two scans; per element one
-            # multiply for m and a multiply-add per accumulator.
-            "affine_scan": dict(
-                shape=list(shape), k=2,
-                ms=graph_ms(lambda: scan.affine_hash_scan(m, (a1, a2))),
-                call_ms=cuda_ms(lambda: scan.affine_hash_scan(m, (a1, a2))),
-                plain_ms=cuda_ms(lambda: scan.affine_hash_scan_plain(m, (a1, a2)), 3),
-                library_ms=None,
-                **bound(4.0 * b * n * (1 + 2 * 2), b * n * (1 + 2 * 2)),
-            ),
-            # Reads and writes one stream; per element and state a nibble
-            # extract (shift, mask) and a lookup-insert (shift, mask, or).
-            "dfa_scan": dict(
-                shape=list(shape), n_states=5,
-                ms=graph_ms(lambda: scan.dfa_compose_scan(f, 5)),
-                call_ms=cuda_ms(lambda: scan.dfa_compose_scan(f, 5)),
-                plain_ms=cuda_ms(lambda: scan.dfa_compose_scan_plain(f, 5), 3),
-                library_ms=None,
-                **bound(4.0 * b * n * 2, b * n * 5 * 5),
-            ),
-        }
+    def time_scan(kind, rows, width, variant):
+        shape = (rows, width)
+        if kind == "affine_scan":
+            m, *accs = (full_range(shape) for _ in range(1 + variant))
+            accs = tuple(accs)
+
+            def call():
+                return scan.affine_hash_scan(m, accs)
+
+            def plain():
+                return scan.affine_hash_scan_plain(m, accs)
+        else:
+            f = packed_maps_(shape, variant)
+
+            def call():
+                return scan.dfa_compose_scan(f, variant)
+
+            def plain():
+                return scan.dfa_compose_scan_plain(f, variant)
+        return dict(
+            shape=list(shape), variant=variant, ms=graph_ms(call), call_ms=cuda_ms(call),
+            plain_ms=cuda_ms(plain, 3), library_ms=None,
+            **bound(*scan_cost(kind, rows, width, variant)),
+        )
 
     def time_sort(rows, width):
         k1 = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(rows, width), dtype=np.int64).astype(np.int32)).to(dev)
@@ -632,10 +686,12 @@ def kernel_phase(corpus):
             **bound(16.0 * rows * width, 3.0 * exchanges),
         )
 
-    for shape in scan_shapes[:-1]:
-        t = time_scan(shape)
-        per_shape.append({"kernel": "affine_scan", **t["affine_scan"]})
-        per_shape.append({"kernel": "dfa_scan", **t["dfa_scan"]})
+    # Every variant the main path launches (affine k = 1, 2; DFA 4 and 5
+    # states) at its five buckets; no single PyTorch call computes either.
+    for n in (512, 2048, 8192, 32768, 65536):
+        for kind, variant in (("affine_scan", 1), ("affine_scan", 2), ("dfa_scan", 4),
+                              ("dfa_scan", 5)):
+            per_shape.append({"kernel": kind, **time_scan(kind, 64, n, variant)})
     # Sort rows as the main path stacks them: 4 jobs x 64 rows for the
     # n-gram tables (widths = max_words of each bucket), 5 x 64 when the
     # dup gate fires at the widest bucket.
@@ -646,7 +702,7 @@ def kernel_phase(corpus):
     # single PyTorch call computes a multi-group scan: library_ms is null.
     for n in (512, 2048, 8192):
         shape = (64, n)
-        for name, make in fused_site_lists(full_range, packed_maps, shape).items():
+        for name, make in fused_site_lists(full_range, packed_maps_, shape).items():
             if name.startswith("generic") or (name == "structure_wide") != (n > 8192):
                 continue
             groups = make()
@@ -689,14 +745,17 @@ def kernel_phase(corpus):
     for row in per_shape:
         label = row["kernel"] + (f":{row['site']}" if "site" in row else "")
         label += f"@{row['bucket']}" if "bucket" in row else ""
+        label += f"/{row['variant']}" if "variant" in row else ""
         print(f"  {label:32s} {str(row['shape']):16s} kernel {row['ms']:.4f} ms"
               f"  call {row['call_ms']:.4f} ms"
               f"  plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
               + (f"  library {row['library_ms']:.4f} ms" if row["library_ms"] else ""),
               flush=True)
     rep = {
-        "affine_scan": next(r for r in per_shape if r["kernel"] == "affine_scan" and r["shape"] == [64, 65536]),
-        "dfa_scan": next(r for r in per_shape if r["kernel"] == "dfa_scan" and r["shape"] == [64, 65536]),
+        "affine_scan": next(r for r in per_shape if r["kernel"] == "affine_scan"
+                            and r["shape"] == [64, 65536] and r["variant"] == 2),
+        "dfa_scan": next(r for r in per_shape if r["kernel"] == "dfa_scan"
+                         and r["shape"] == [64, 65536] and r["variant"] == 5),
         "sort2": next(r for r in per_shape if r["kernel"] == "sort2" and r["shape"] == [256, 16384]),
         # The main path's largest fused call: gopher_quality's 4 groups.
         "fused_scan": next(r for r in per_shape if r["kernel"] == "fused_scan"
@@ -706,29 +765,37 @@ def kernel_phase(corpus):
                            and r["site"] == "structure" and r["bucket"] == 8192),
         "sort3": next(r for r in per_shape if r["kernel"] == "sort3" and r["shape"] == [64, 16384]),
     }
-    return errs, rep, per_shape, time_sort
+    timers = {"sort2": lambda b, n, _: time_sort(b, n),
+              "affine_scan": lambda b, n, v: time_scan("affine_scan", b, n, v),
+              "dfa_scan": lambda b, n, v: time_scan("dfa_scan", b, n, v)}
+    return errs, rep, per_shape, timers
 
 
-def launch_losses(run, per_shape, time_sort):
-    """The run's launches of every kernel by shape, each beside the kernel's
-    time at that shape from ``per_shape`` (``sort2`` timed now at any shape
-    not timed yet; ``affine_scan`` at k=2, ``dfa_scan`` at 5 states and
+def launch_losses(run, per_shape, timers):
+    """The run's launches of every kernel by shape and variant (k for
+    ``affine_scan``, n_states for ``dfa_scan``), each beside the kernel's
+    time at that shape and variant from ``per_shape`` (``sort2`` and the
+    per-scan kernels timed now at any shape or variant not timed yet;
     ``fused_scan`` with ``fineweb``'s list, the chain schedule's one fused
     site), and per kernel the sum of launches x (kernel ms - bound ms)."""
     timed = {}
     for r in per_shape:
-        timed.setdefault((r["kernel"], r.get("site"), r["shape"][0], r["shape"][1]), r)
+        timed.setdefault((r["kernel"], r.get("site"), r["shape"][0], r["shape"][1],
+                          r.get("variant")), r)
     site_of = {"fused_scan": "fineweb"}
     rows, totals = [], {}
-    launched = [(k, site_of.get(k), b, n, c) for (k, b, n), c in run["shape_launches"]]
-    launched += [("chain_scan", s, 64, n, c) for (s, n), c in run["chain_shape_launches"]]
-    for kernel, site, b, n, count in sorted(launched, key=lambda x: (x[0], str(x[1]), x[2], x[3])):
-        t = timed.get((kernel, site, b, n))
-        if t is None and kernel == "sort2":
-            t = {"kernel": "sort2", **time_sort(b, n)}
+    launched = [(key[0], site_of.get(key[0]), key[1], key[2], key[3] if len(key) > 3 else None, c)
+                for key, c in run["shape_launches"]]
+    launched += [("chain_scan", s, 64, n, None, c) for (s, n), c in run["chain_shape_launches"]]
+    for kernel, site, b, n, variant, count in sorted(
+            launched, key=lambda x: (x[0], str(x[1]), x[2], x[3], x[4] or 0)):
+        t = timed.get((kernel, site, b, n, variant))
+        if t is None and kernel in timers:
+            t = {"kernel": kernel, **timers[kernel](b, n, variant)}
             per_shape.append(t)
-            timed[(kernel, site, b, n)] = t
-        row = {"kernel": kernel, "site": site, "shape": [b, n], "launches": count,
+            timed[(kernel, site, b, n, variant)] = t
+        row = {"kernel": kernel, "site": site, "shape": [b, n], "variant": variant,
+               "launches": count,
                "ms": t["ms"] if t else None, "bound_ms": t["bound_ms"] if t else None}
         row["loss_ms"] = count * (t["ms"] - t["bound_ms"]) if t else None
         rows.append(row)
@@ -739,6 +806,7 @@ def launch_losses(run, per_shape, time_sort):
             tot["loss_ms"] += row["loss_ms"]
     for r in rows:
         label = r["kernel"] + (f":{r['site']}" if r["site"] else "")
+        label += f"/{r['variant']}" if r["variant"] is not None else ""
         ms = f"{r['ms']:.4f}" if r["ms"] is not None else "not timed"
         loss = f"{r['loss_ms']:.3f}" if r["loss_ms"] is not None else "-"
         print(f"  launches {label:32s} {str(r['shape']):14s} {r['launches']:5d} x kernel {ms} ms"
@@ -958,13 +1026,13 @@ def main() -> int:
     print(f"corpus: {len(rows)} documents, {sum(len(r[1]) for r in rows)} chars, "
           f"{time.perf_counter() - t0:.1f} s to make", flush=True)
 
-    errs, rep, per_shape, time_sort = kernel_phase(rows)
+    errs, rep, per_shape, timers = kernel_phase(rows)
     walk = time_dup_walk()
     print(f"dup walk (torch loop): {walk}", flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     summary = main_path("cuda", rows, work)
-    losses = launch_losses(summary["chain"], per_shape, time_sort)
+    losses = launch_losses(summary["chain"], per_shape, timers)
 
     sources = {"affine_scan": "textblaster_tpu_torch/csrc/scan.cu",
                "dfa_scan": "textblaster_tpu_torch/csrc/scan.cu",

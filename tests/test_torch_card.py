@@ -41,20 +41,56 @@ def _packed_maps(rng, shape, n_states, dev):
     return torch.from_numpy(out.astype(np.uint32).view(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (37, 1000), (64, 8192), (3, 70000)])
-def test_scan_kernels_match_plain(cuda, shape):
-    rng = np.random.default_rng(shape[1])
+def _maps_with_stray_nibbles(rng, shape, n_states, dev):
+    """Packed maps whose nibbles below ``n_states`` hold states and whose
+    nibbles at or above it hold anything (the op clears those, except in a
+    one-lane row, which the plain version returns as it is)."""
+    out = rng.integers(0, 2**32, size=shape, dtype=np.int64)
+    for s in range(n_states):
+        out &= ~(15 << (4 * s))
+        out |= rng.integers(0, n_states, size=shape, dtype=np.int64) << (4 * s)
+    return torch.from_numpy(out.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def _offset_view(t):
+    """``t``'s values in a contiguous view 4 bytes past an aligned base, so
+    that the kernel takes its scalar loads and stores."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+#: Every edge of ops/scan.py's scan_geometry: one warp per row to 512
+#: lanes, one CTA to 8192, clusters beyond, segments beyond 65536.
+SCAN_EDGE_WIDTHS = [1, 31, 32, 511, 512, 513, 2047, 2048, 8192, 8193, 16384, 32768, 65536,
+                    70000]
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64, 65])
+@pytest.mark.parametrize("width", SCAN_EDGE_WIDTHS)
+def test_scan_kernels_match_plain(cuda, width, rows):
+    """k = 1 and 2, and every n_states on maps with stray upper nibbles, on
+    aligned tensors and on offset views, exact."""
+    rng = np.random.default_rng(width * 100 + rows)
+    shape = (rows, width)
     m, a1, a2 = (_full_range(rng, shape, cuda) for _ in range(3))
     before = dict(scan.LAUNCHES)
-    for accs in ((a1,), (a1, a2)):
-        got = scan.affine_hash_scan(m, accs)
-        want = scan.affine_hash_scan_plain(m, accs)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    for ns in (4, 5, 8):
-        f = _packed_maps(rng, shape, ns, cuda)
-        assert torch.equal(scan.dfa_compose_scan(f, ns), scan.dfa_compose_scan_plain(f, ns))
-    assert scan.LAUNCHES["affine_scan"] == before["affine_scan"] + 2
-    assert scan.LAUNCHES["dfa_scan"] == before["dfa_scan"] + 3
+    for view in (lambda t: t, _offset_view):
+        for accs in ((a1,), (a1, a2)):
+            mv, av = view(m), tuple(view(a) for a in accs)
+            got = scan.affine_hash_scan(mv, av)
+            want = scan.affine_hash_scan_plain(mv, av)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (view, len(accs))
+        for ns in range(1, 9):
+            f = view(_maps_with_stray_nibbles(rng, shape, ns, cuda))
+            assert torch.equal(scan.dfa_compose_scan(f, ns), scan.dfa_compose_scan_plain(f, ns)), ns
+    torch.cuda.synchronize()
+    assert scan.LAUNCHES["affine_scan"] == before["affine_scan"] + 4
+    assert scan.LAUNCHES["dfa_scan"] == before["dfa_scan"] + 16
+    assert scan.SHAPE_LAUNCHES[("affine_scan", rows, width, 2)] >= 2
+    assert scan.SHAPE_LAUNCHES[("dfa_scan", rows, width, 8)] >= 2
 
 
 @pytest.mark.parametrize("width", [1, 128, 1536, 16384, 32768, 65536])

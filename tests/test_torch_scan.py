@@ -206,3 +206,301 @@ def test_fused_gate_and_cpu_wrapper(monkeypatch):
     assert scan.LAUNCHES == before
     with pytest.raises(ValueError):
         scan.fused_scan([{"kind": "segmax", "xs": (m, a)}])
+
+
+# --- the schedule of csrc/scan.cu, modelled in numpy ---------------------------
+#
+# The kernels themselves run only on the card.  These tests walk
+# ``scan.scan_geometry`` at every edge of its paths with a numpy model of
+# what each thread does -- its consecutive lanes, the warp scan, the fold of
+# the warp totals, the fold of the cluster's chunk aggregates in rank order
+# and the carry across segments -- with the DFA combine as the kernel's
+# __byte_perm form, and hold the model to the plain versions and the JAX
+# twins.  Folding in the wrong order must fail the model.
+
+EDGE_WIDTHS = [1, 31, 32, 511, 512, 513, 2047, 2048, 8192, 8193, 16384, 32768, 65536, 70000]
+_U32 = np.uint32
+
+
+def _u32(a):
+    return np.asarray(a, dtype=np.int64).astype(_U32) if np.ndim(a) == 0 else np.asarray(a).astype(_U32)
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm(x, y, s)``: byte i of the result is byte
+    ``s<4i+2:4i>`` of the eight bytes y:x (x the low four)."""
+    x, y, s = np.broadcast_arrays(_u32(x), _u32(y), _u32(s))
+    src = np.stack([(x >> _U32(8 * i)) & _U32(0xFF) for i in range(4)]
+                   + [(y >> _U32(8 * i)) & _U32(0xFF) for i in range(4)], axis=-1)
+    out = np.zeros(x.shape, dtype=_U32)
+    for i in range(4):
+        idx = ((s >> _U32(4 * i)) & _U32(7)).astype(np.intp)
+        out |= np.take_along_axis(src, idx[..., None], -1)[..., 0] << _U32(8 * i)
+    return out
+
+
+class _Affine:
+    """``Affine<K>`` of scan_ops.cuh: states and elements are (m, a1..aK)."""
+
+    name = "affine"
+
+    def __init__(self, k):
+        self.k = k
+        self.raw_identity = (1,) + (0,) * k
+
+    def identity(self, shape):
+        return tuple(np.full(shape, v, dtype=_U32) for v in self.raw_identity)
+
+    def combine(self, x, y):
+        return (x[0] * y[0],) + tuple(ya + y[0] * xa for xa, ya in zip(x[1:], y[1:]))
+
+    def elem(self, raw):
+        return raw
+
+    step = combine
+
+    def outs(self, s):
+        return s[1:]
+
+    def raw_outs(self, raw):
+        return raw[1:]
+
+
+class _Dfa:
+    """``Dfa<NS>`` of scan_ops.cuh: a state is the nibble-packed map, an element
+    the map spread to eight bytes; the combine is __byte_perm's lookup."""
+
+    name = "dfa"
+
+    def __init__(self, ns):
+        self.ns = ns
+        self.mask = _U32(0xFFFFFFFF if ns == 8 else (1 << (4 * ns)) - 1)
+        self.raw_identity = (scan.dfa_ident(ns),)
+
+    def identity(self, shape):
+        return (np.full(shape, self.raw_identity[0], dtype=_U32),)
+
+    @staticmethod
+    def _spread(f, sel):
+        d = _byte_perm(f, 0, sel)
+        return (d & _U32(0x000F000F)) | ((d >> _U32(4)) & _U32(0x0F000F00))
+
+    def elem(self, raw):
+        return (self._spread(raw[0], 0x1100), self._spread(raw[0], 0x3322))
+
+    def step(self, s, e):
+        lo, hi = e
+        r = _byte_perm(lo, hi, s[0])
+        t = r | (r >> _U32(4))
+        if self.ns > 4:
+            r2 = _byte_perm(lo, hi, s[0] >> _U32(16))
+            out = _byte_perm(t, r2 | (r2 >> _U32(4)), 0x6420)
+        else:
+            out = _byte_perm(t, 0, 0x4420)
+        return (out & self.mask,)
+
+    def combine(self, x, y):
+        return self.step(x, self.elem(y))
+
+    def outs(self, s):
+        return s
+
+    def raw_outs(self, raw):
+        return raw
+
+
+def _sel(cond, a, b):
+    return tuple(np.where(cond, x, y) for x, y in zip(a, b))
+
+
+def _take(s, idx, axis):
+    return tuple(np.take(x, idx, axis=axis) for x in s)
+
+
+def _hs_inclusive(op, x, axis, n, swap=False):
+    """Inclusive __shfl_up_sync scan over the first ``n`` positions of
+    ``axis`` (the rest hold the identity): at each offset, position i takes
+    combine(x[i - off], x[i]) -- with ``swap`` the later one on the left."""
+    size = x[0].shape[axis]
+    pos = np.arange(size).reshape([-1 if a == axis % x[0].ndim else 1 for a in range(x[0].ndim)])
+    off = 1
+    while off < n:
+        up = tuple(np.roll(v, off, axis=axis) for v in x)
+        new = op.combine(x, up) if swap else op.combine(up, x)
+        x = _sel(pos >= off, new, x)
+        off <<= 1
+    return x
+
+
+def _exclusive(op, inc, axis):
+    """The exclusive prefix from an inclusive scan: shift up one, identity
+    at position 0."""
+    shape = inc[0].shape
+    pos = np.arange(shape[axis]).reshape([-1 if a == axis % len(shape) else 1
+                                          for a in range(len(shape))])
+    up = tuple(np.roll(v, 1, axis=axis) for v in inc)
+    return _sel(pos == 0, op.identity(shape), up)
+
+
+def _walk(op, e, run, items_axis=-1):
+    """Re-walk: the inclusive outputs of each thread's consecutive items
+    from its prefix ``run``."""
+    outs = []
+    for j in range(e[0].shape[items_axis]):
+        run = op.step(run, _take(e, j, items_axis))
+        outs.append(op.outs(run))
+    return tuple(np.stack([o[k] for o in outs], axis=-1) for k in range(len(outs[0])))
+
+
+def _fold(op, e):
+    agg = op.identity(e[0].shape[:-1])
+    for j in range(e[0].shape[-1]):
+        agg = op.step(agg, _take(e, j, -1))
+    return agg
+
+
+def _model_scan(op, raw, swap=None):
+    """``csrc/scan.cu`` on the rows of ``raw`` (uint32 ``[R, L]`` streams)
+    under ``scan_geometry(L, op)``: each thread's consecutive lanes, the
+    warp scan, the warps' fold, the cluster's fold in rank order and the
+    carry across segments.  ``swap`` names a fold done with the later
+    operand on the left (``"lanes"``, ``"warps"``, ``"chunks"``,
+    ``"carry"``)."""
+    rows, length = raw[0].shape
+    if length == 1:
+        return op.raw_outs(raw)
+    c, t, segs = scan.scan_geometry(length, op.name)
+    it = scan.SCAN_ITEMS[op.name]
+    n_warps, total = t // 32, segs * c * t * it
+    pad = tuple(np.concatenate([r, np.full((rows, total - length), i, _U32)], 1)
+                for r, i in zip(raw, op.raw_identity))
+    carry = op.identity((rows, 1, 1, 1))
+    out_segs = []
+    for s in range(segs):
+        seg = tuple(p[:, s * c * t * it:(s + 1) * c * t * it].reshape(rows, c, n_warps, 32, it)
+                    for p in pad)
+        e = op.elem(seg)
+        inc = _hs_inclusive(op, _fold(op, e), 3, 32, swap == "lanes")       # [R, C, Wn, 32]
+        excl = _exclusive(op, inc, 3)
+        wi = _hs_inclusive(op, _take(inc, [31], 3), 2, n_warps, swap == "warps")  # [R, C, Wn, 1]
+        warp_pref = _exclusive(op, wi, 2)
+        chunk_tot = _take(wi, [n_warps - 1], 2)                             # [R, C, 1, 1]
+        ci = _hs_inclusive(op, chunk_tot, 1, c, swap == "chunks")
+        chunk_pref = _exclusive(op, ci, 1)
+        seg_total = _take(ci, [c - 1], 1)                                   # [R, 1, 1, 1]
+        pre = op.combine(op.combine(op.combine(carry, chunk_pref), warp_pref), excl)
+        out_segs.append(tuple(o.reshape(rows, -1) for o in _walk(op, e, pre)))
+        carry = op.combine(seg_total, carry) if swap == "carry" else op.combine(carry, seg_total)
+    return tuple(np.concatenate([o[k] for o in out_segs], 1)[:, :length]
+                 for k in range(len(out_segs[0])))
+
+
+def _maps_with_stray_nibbles(rng, shape, n_states):
+    """Packed maps whose nibbles below ``n_states`` hold states and whose
+    nibbles at or above it hold anything (the op clears those)."""
+    out = rng.integers(0, 2**32, size=shape, dtype=np.int64)
+    for s in range(n_states):
+        out &= ~(15 << (4 * s))
+        out |= rng.integers(0, n_states, size=shape, dtype=np.int64) << (4 * s)
+    return out.astype(np.uint32).view(np.int32)
+
+
+def _geometry_accepted(geo, length, op):
+    """The geometry checks of scan.cu's launch()."""
+    chunk = geo.threads * scan.SCAN_ITEMS[op]
+    return (32 <= geo.threads <= 1024 and geo.threads % 32 == 0 and 1 <= geo.cluster <= 8
+            and geo.segments >= 1 and chunk * geo.cluster * geo.segments >= length
+            and chunk * geo.cluster * (geo.segments - 1) < length)
+
+
+def test_scan_geometry_covers_each_row_at_its_edges():
+    for op in ("affine", "dfa"):
+        for length in EDGE_WIDTHS + [3, 600, 4096, 100000, 2**20]:
+            geo = scan.scan_geometry(length, op)
+            assert _geometry_accepted(geo, length, op), (op, length, geo)
+    g = scan.scan_geometry
+    assert g(1, "affine") == (1, 32, 1) and g(512, "affine") == (1, 128, 1)
+    assert g(2048, "affine") == (1, 512, 1) and g(8192, "affine") == (1, 512, 4)
+    assert g(8193, "affine") == (2, 1024, 2) and g(65536, "affine") == (2, 1024, 8)
+    assert g(70000, "affine") == (2, 1024, 9)
+    assert g(512, "dfa") == (1, 32, 1) and g(2048, "dfa") == (1, 128, 1)
+    assert g(2049, "dfa") == (3, 64, 1) and g(8192, "dfa") == (8, 64, 1)
+    assert g(8193, "dfa") == (5, 128, 1) and g(32768, "dfa") == (8, 128, 2)
+    assert g(65536, "dfa") == (8, 128, 4) and g(70000, "dfa") == (8, 128, 5)
+
+
+@pytest.mark.parametrize("n_states", range(1, 9))
+def test_byte_perm_combine_matches_the_dfa_op(n_states):
+    """The kernel's __byte_perm combine equals ``_dfa_op`` (the port's and
+    the JAX package's) on maps with stray nibbles above ``n_states``, as
+    the earlier or the later operand, and clears those nibbles."""
+    rng = np.random.default_rng(100 + n_states)
+    x = _maps_with_stray_nibbles(rng, (4096,), n_states)
+    y = _maps_with_stray_nibbles(rng, (4096,), n_states)
+    (got,) = _Dfa(n_states).combine((_u32(x),), (_u32(y),))
+    (want,) = scan._dfa_op(n_states)((torch.from_numpy(x),), (torch.from_numpy(y),))
+    (want_jax,) = psc._dfa_op(n_states)((jnp.asarray(x),), (jnp.asarray(y),))
+    np.testing.assert_array_equal(got.view(np.int32), want.numpy())
+    np.testing.assert_array_equal(got.view(np.int32), np.asarray(want_jax))
+    assert not (got & ~_Dfa(n_states).mask).any()
+
+
+def _edge_inputs(rng, shape):
+    m, a1, a2 = (_full_range(rng, shape) for _ in range(3))
+    return m, a1, a2
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+def test_scan_model_matches_plain_at_geometry_edges(width):
+    """The modelled kernel equals the plain versions at every edge of the
+    geometry: k = 1 and 2, and every ``n_states`` on maps with stray upper
+    nibbles (at width 1 the plain version returns them unchanged)."""
+    rng = np.random.default_rng(width)
+    shape = (2, width)
+    m, a1, a2 = _edge_inputs(rng, shape)
+    for accs in ((a1,), (a1, a2)):
+        want = scan.affine_hash_scan_plain(_t(m), tuple(_t(a) for a in accs))
+        got = _model_scan(_Affine(len(accs)), tuple(_u32(x) for x in (m,) + accs))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.view(np.int32), w.numpy())
+    for ns in (range(1, 9) if width in (1, 513, 8193) else (4, 5, 8)):
+        fns = _maps_with_stray_nibbles(rng, shape, ns)
+        (got,) = _model_scan(_Dfa(ns), (_u32(fns),))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      scan.dfa_compose_scan_plain(_t(fns), ns).numpy())
+
+
+@pytest.mark.parametrize("width", [31, 8193])
+def test_scan_model_matches_lax(width):
+    """The model against the JAX package's lax twins (its ops under
+    ``jax.lax.associative_scan``) on valid maps: ``associative_scan``
+    leaves lane 0 as it is, so on stray nibbles it differs from the plain
+    shift schedule, which the kernel follows."""
+    rng = np.random.default_rng(width + 7)
+    shape = (2, width)
+    m, a1, a2 = _edge_inputs(rng, shape)
+    xs = tuple(jnp.asarray(x) for x in (m, a1, a2))
+    lax = _lax_scan(psc._affine_op, xs)
+    got = _model_scan(_Affine(2), tuple(_u32(x) for x in (m, a1, a2)))
+    for g, w in zip(got, lax[1:]):
+        np.testing.assert_array_equal(g.view(np.int32), np.asarray(w))
+    fns = _packed_maps(rng, shape, 5)
+    (lax_d,) = _lax_scan(psc._dfa_op(5), (jnp.asarray(fns),))
+    (got,) = _model_scan(_Dfa(5), (_u32(fns),))
+    np.testing.assert_array_equal(got.view(np.int32), np.asarray(lax_d))
+
+
+@pytest.mark.parametrize("swap,width", [("lanes", 512), ("lanes", 2048), ("warps", 2048),
+                                        ("chunks", 16384), ("carry", 70000)])
+def test_scan_model_fails_with_a_swapped_fold(swap, width):
+    """Every fold of the schedule is order-sensitive: done with the later
+    operand on the left, the model no longer equals the plain version."""
+    rng = np.random.default_rng(width)
+    shape = (2, width)
+    m, a1, _ = _edge_inputs(rng, shape)
+    (want,) = scan.affine_hash_scan_plain(_t(m), (_t(a1),))
+    (got,) = _model_scan(_Affine(1), (_u32(m), _u32(a1)), swap=swap)
+    assert not np.array_equal(got.view(np.int32), want.numpy())
+    fns = _maps_with_stray_nibbles(rng, shape, 5)
+    (got,) = _model_scan(_Dfa(5), (_u32(fns),), swap=swap)
+    assert not np.array_equal(got.view(np.int32), scan.dfa_compose_scan_plain(_t(fns), 5).numpy())

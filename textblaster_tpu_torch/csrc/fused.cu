@@ -17,8 +17,8 @@
 // its final carry (emit "last", [rows, 1]).  The ops and the tile constants
 // are in scan_ops.cuh (uint32 arithmetic, earlier operand on the left).
 //
-// Design: the tile scan of scan_ops.cuh (shared with scan.cu and
-// chain.cu).  One CTA per row; for each group in order, the CTA walks the
+// Design: the tile scan of scan_ops.cuh (its ops shared with chain.cu).
+// One CTA per row; for each group in order, the CTA walks the
 // row in tiles of SCAN_TILE elements with a carried prefix.  A tile is
 // staged through shared memory with coalesced loads, each thread composes
 // SCAN_ITEMS consecutive elements, a __shfl_up_sync warp scan combines the
@@ -30,7 +30,7 @@
 //
 // Bound: memory.  The launch moves at least
 //   4*rows*len*(sum of inputs + sum of scanned outputs) + 4*rows*(sum of last outputs)
-// bytes.  Known weakness: as in scan.cu, 64 rows are 64 CTAs on 132 SMs,
+// bytes.  Known weakness: 64 rows are 64 CTAs on 132 SMs,
 // and the groups of a row run one after another; splitting rows across
 // CTAs and staging tiles with cp.async is later work.
 

@@ -1,5 +1,5 @@
 // Scan ops shared by scan.cu, fused.cu and chain.cu, and the tile constants
-// and tile scan of scan.cu and fused.cu.
+// and tile scan of fused.cu (scan.cu has its own register-held row scan).
 //
 // Every op composes int32 streams in uint32 arithmetic, which gives the
 // int32 wraparound of the JAX package's ops (signed overflow is undefined
@@ -104,6 +104,101 @@ __device__ __forceinline__ typename Op::State shfl_up(const typename Op::State& 
   for (int k = 0; k < Op::N; ++k) r.v[k] = __shfl_up_sync(0xffffffffu, s.v[k], off);
   return r;
 }
+
+// The ops of scan.cu's register-held row scan, in static form with what the
+// row scan needs to load, walk and store a lane: Affine<K> (AffineOp<K>'s
+// combine) and Dfa<NS> (`_dfa_op` in byte form, templated on the state
+// count).  DfaOp and Dfa<NS> are one op in two forms until fused_scan's
+// redesign moves fused.cu and chain.cu to Dfa<NS> and drops DfaOp.
+template <int K>
+struct Affine {
+  static constexpr int ITEMS = 4;  // lanes a thread holds
+  static constexpr bool PREFETCH = true;
+  static constexpr int N = K + 1;      // words of a state
+  static constexpr int N_IN = K + 1;   // streams read
+  static constexpr int N_OUT = K;      // streams written (the accumulators)
+  using State = typename AffineOp<K>::State;
+  using Elem = State;
+  __device__ __forceinline__ static State identity() { return AffineOp<K>().identity(); }
+  __device__ __forceinline__ static uint32_t raw_identity(int k) { return k == 0 ? 1u : 0u; }
+  __device__ __forceinline__ static State combine(const State& x, const State& y) {
+    return AffineOp<K>().combine(x, y);
+  }
+  __device__ __forceinline__ static Elem elem(const uint32_t (&raw)[N_IN]) {
+    State s;
+#pragma unroll
+    for (int k = 0; k < N; ++k) s.v[k] = raw[k];
+    return s;
+  }
+  __device__ __forceinline__ static State step(const State& run, const Elem& e) {
+    return combine(run, e);
+  }
+  __device__ __forceinline__ static uint32_t out(const State& s, int k) { return s.v[k + 1]; }
+  __device__ __forceinline__ static int in_of_out(int k) { return k + 1; }
+};
+
+// `_dfa_op` with NS states; a state is the nibble-packed map, an element
+// its map expanded once to eight bytes (b_lo, b_hi; byte q = the nibble at
+// state q).  (b . a) is __byte_perm(b_lo, b_hi, a) for states 0..3 (the
+// selector's nibbles are a's states, each below 8, so bit 3, the
+// sign-replicate mode, stays clear) and __byte_perm(b_lo, b_hi, a >> 16) for
+// states 4..7, repacked to nibbles and masked to NS.
+template <int NS>
+struct Dfa {
+  static constexpr int ITEMS = 16;
+  static constexpr bool PREFETCH = false;  // 32 more registers a thread; slower
+  static constexpr int N = 1;
+  static constexpr int N_IN = 1;
+  static constexpr int N_OUT = 1;
+  static constexpr uint32_t MASK = NS == 8 ? 0xffffffffu : (1u << (4 * NS)) - 1u;
+  struct State {
+    uint32_t v[1];
+  };
+  struct Elem {
+    uint32_t lo, hi;  // bytes 0..3 and 4..7
+  };
+  __device__ __forceinline__ static uint32_t ident_map() {
+    uint32_t id = 0u;
+#pragma unroll
+    for (int q = 0; q < NS; ++q) id |= (uint32_t)q << (4 * q);
+    return id;
+  }
+  __device__ __forceinline__ static State identity() { return State{{ident_map()}}; }
+  __device__ __forceinline__ static uint32_t raw_identity(int) { return ident_map(); }
+  // Nibbles 0..3 (or 4..7) of f as bytes: duplicate the two bytes that hold
+  // them, then keep the low nibble of bytes 0, 2 and the high one of 1, 3.
+  __device__ __forceinline__ static uint32_t spread(uint32_t f, uint32_t sel) {
+    const uint32_t d = __byte_perm(f, 0u, sel);
+    return (d & 0x000F000Fu) | ((d >> 4) & 0x0F000F00u);
+  }
+  __device__ __forceinline__ static Elem table(uint32_t f) {
+    return Elem{spread(f, 0x1100u), spread(f, 0x3322u)};
+  }
+  // (e . s): nibble q = e[s[q]] for q < NS, the other nibbles 0.  The
+  // selected bytes are below 16, so r | (r >> 4) holds two nibbles in each
+  // of bytes 0 and 2.
+  __device__ __forceinline__ static State apply(const State& s, const Elem& e) {
+    const uint32_t r = __byte_perm(e.lo, e.hi, s.v[0]);
+    const uint32_t t = r | (r >> 4);
+    uint32_t out;
+    if (NS > 4) {
+      const uint32_t r2 = __byte_perm(e.lo, e.hi, s.v[0] >> 16);
+      out = __byte_perm(t, r2 | (r2 >> 4), 0x6420u);
+    } else {
+      out = __byte_perm(t, 0u, 0x4420u);
+    }
+    return State{{out & MASK}};
+  }
+  __device__ __forceinline__ static State combine(const State& x, const State& y) {
+    return apply(x, table(y.v[0]));
+  }
+  __device__ __forceinline__ static Elem elem(const uint32_t (&raw)[1]) { return table(raw[0]); }
+  __device__ __forceinline__ static State step(const State& run, const Elem& e) {
+    return apply(run, e);
+  }
+  __device__ __forceinline__ static uint32_t out(const State& s, int) { return s.v[0]; }
+  __device__ __forceinline__ static int in_of_out(int) { return 0; }
+};
 
 // Shared memory of a tile scan over up to M streams.
 template <int M>

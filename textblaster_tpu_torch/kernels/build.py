@@ -122,9 +122,9 @@ def build() -> Dict[str, str]:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "scan":
-        lib.tb_affine_scan.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.tb_affine_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.tb_affine_scan.restype = i
-        lib.tb_dfa_scan.argtypes = [p, p, i, i, i, p]
+        lib.tb_dfa_scan.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.tb_dfa_scan.restype = i
     elif name == "sort":
         lib.tb_sort2.argtypes = [p, p, p, p, p, i, i, i, p]

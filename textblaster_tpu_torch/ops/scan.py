@@ -5,7 +5,8 @@ The port's counterpart of the JAX package's
 ``textblaster_tpu/ops/pallas_scan.py``:
 
 * the per-scan half, ``affine_hash_scan`` and ``dfa_compose_scan`` (their
-  Pallas kernel is ``_pallas_scan_tuple``; here ``csrc/scan.cu``);
+  Pallas kernel is ``_pallas_scan_tuple``; here ``csrc/scan.cu``, laid
+  out by :func:`scan_geometry`);
 * the fused half, :func:`fused_scan` over a list of independent groups
   built by :func:`affine_group`, :func:`add_group` and :func:`dfa_group`
   (its Pallas kernel is ``_fused_call``; here ``csrc/fused.cu``);
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,6 +47,7 @@ __all__ = [
     "LAUNCHES",
     "SHAPE_LAUNCHES",
     "PREPS",
+    "ScanGeometry",
     "Tap",
     "add_group",
     "affine_group",
@@ -69,13 +71,17 @@ __all__ = [
     "fused_scan",
     "fused_scan_ok",
     "fused_scan_plain",
+    "scan_geometry",
     "segmax_group",
 ]
 
 #: Kernel launches on the card, by kernel name.
 LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0, "fused_scan": 0, "chain_scan": 0}
-#: The same launches by ``(kernel, rows, width)`` (``chain_scan`` below).
-SHAPE_LAUNCHES: Dict[Tuple[str, int, int], int] = {}
+#: The same launches by variant: ``(kernel, rows, width, k)`` for
+#: ``affine_scan`` (k accumulators), ``(kernel, rows, width, n_states)``
+#: for ``dfa_scan``, ``(kernel, rows, width)`` for ``fused_scan``
+#: (``chain_scan`` below).
+SHAPE_LAUNCHES: Dict[Tuple[Any, ...], int] = {}
 #: The ``chain_scan`` launches of LAUNCHES by call site (the ``site`` its
 #: caller names), and by ``(site, width)``.
 CHAIN_SITE_LAUNCHES: Dict[str, int] = {}
@@ -154,27 +160,86 @@ def dfa_compose_scan_plain(fns: torch.Tensor, n_states: int) -> torch.Tensor:
 
 
 def _check(name: str, ts: Sequence[torch.Tensor]) -> None:
+    """Raises unless every operand is a contiguous int32 ``[rows, len]``
+    tensor of one shape on one device (probed with the cheap accessors: the
+    per-scan wrappers run this on every call)."""
     ref = ts[0]
+    shape, dev, cuda = ref.shape, ref.get_device(), ref.is_cuda
     for t in ts:
-        if t.device != ref.device:
+        if t.get_device() != dev or t.is_cuda != cuda:
             raise ValueError(f"{name}: operands on different devices")
-        if t.dtype != torch.int32:
+        if t.dtype is not torch.int32:
             raise TypeError(f"{name}: expected int32, got {t.dtype}")
-        if t.dim() != 2 or t.shape != ref.shape:
+        if t.shape != shape or len(shape) != 2:
             raise ValueError(f"{name}: expected equal [rows, len] operands")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    if ref.shape[0] > 2**31 - 1 or ref.shape[1] > 2**31 - 1:
-        raise ValueError(f"{name}: shape {tuple(ref.shape)} too large")
+    if shape[0] > 2**31 - 1 or shape[1] > 2**31 - 1:
+        raise ValueError(f"{name}: shape {tuple(shape)} too large")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _count(kernel: str, rows: int, width: int) -> None:
+def _count(kernel: str, rows: int, width: int, *variant: int) -> None:
     LAUNCHES[kernel] += 1
-    SHAPE_LAUNCHES[(kernel, rows, width)] = SHAPE_LAUNCHES.get((kernel, rows, width), 0) + 1
+    key = (kernel, rows, width, *variant)
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
+
+
+# --- the per-scan kernels (csrc/scan.cu) ----------------------------------------
+
+#: Lanes a thread holds, by op (``Affine::ITEMS`` and ``Dfa::ITEMS`` in
+#: csrc/scan_ops.cuh).
+SCAN_ITEMS = {"affine": 4, "dfa": 16}
+
+
+class ScanGeometry(NamedTuple):
+    """How ``csrc/scan.cu`` lays a ``[rows, length]`` scan out: a row is
+    ``cluster`` chunks of ``threads * SCAN_ITEMS[op]`` consecutive lanes,
+    one CTA each (a thread block cluster when ``cluster > 1``), walked in
+    ``segments`` segments of ``cluster`` chunks."""
+
+    cluster: int
+    threads: int
+    segments: int
+
+
+def scan_geometry(length: int, op: str) -> ScanGeometry:
+    """The launch geometry of a row of ``length`` lanes under ``op``
+    (``"affine"`` or ``"dfa"``):
+
+    * affine (4 lanes a thread): one CTA of up to 512 threads to 8192
+      lanes, walking 2048-lane segments; wider, a 2-CTA cluster of 1024
+      threads walking 8192-lane segments (64 rows: 128 CTAs);
+    * dfa (16 lanes a thread): one CTA to 2048 lanes; wider, a cluster of
+      up to 8 CTAs of 64 threads (to 8192 lanes) or 128, walking segments
+      of 8 chunks beyond 16384 lanes."""
+    items = SCAN_ITEMS[op]
+    if op == "affine":
+        if length <= 8192:
+            threads = min(512, -(-length // (32 * items)) * 32)
+            return ScanGeometry(1, threads, -(-length // (threads * items)))
+        return ScanGeometry(2, 1024, -(-length // (2 * 1024 * items)))
+    if length <= 2048:
+        return ScanGeometry(1, -(-length // (32 * items)) * 32, 1)
+    threads = 64 if length <= 8192 else 128
+    cluster = min(8, -(-length // (threads * items)))
+    return ScanGeometry(cluster, threads, -(-length // (cluster * threads * items)))
+
+
+#: The library of csrc/scan.cu, loaded on first use (no import or lookup
+#: on later calls).
+_SCAN_LIB: List[ctypes.CDLL] = []
+
+
+def _scan_lib() -> ctypes.CDLL:
+    if not _SCAN_LIB:
+        from ..kernels.build import load
+
+        _SCAN_LIB.append(load("scan"))
+    return _SCAN_LIB[0]
 
 
 def affine_hash_scan(
@@ -185,57 +250,59 @@ def affine_hash_scan(
     multiplier is internal).  All operands are contiguous int32
     ``[rows, len]`` tensors on one device; any shape is taken."""
     accs = tuple(accs)
-    if m.device.type == "cpu":
-        return affine_hash_scan_plain(m, accs)
-    if m.device.type != "cuda":
+    if not m.is_cuda:
+        if m.device.type == "cpu":
+            return affine_hash_scan_plain(m, accs)
         raise ValueError(f"affine_hash_scan: unsupported device {m.device}")
-    if len(accs) not in (1, 2):
+    k = len(accs)
+    if k not in (1, 2):
         raise ValueError("affine_hash_scan: the kernel takes 1 or 2 accumulators")
     _check("affine_hash_scan", (m,) + accs)
-    from ..kernels.build import check, load
-
-    lib = load("scan")
-    outs = tuple(torch.empty_like(a) for a in accs)
     rows, length = m.shape
+    shape = (rows, length)
+    if k == 2:
+        outs = (m.new_empty(shape), m.new_empty(shape))
+        ptrs = (m.data_ptr(), accs[0].data_ptr(), accs[1].data_ptr(), outs[0].data_ptr(),
+                outs[1].data_ptr())
+    else:
+        outs = (m.new_empty(shape),)
+        ptrs = (m.data_ptr(), accs[0].data_ptr(), None, outs[0].data_ptr(), None)
+    if rows == 0 or length == 0:
+        return outs
+    cluster, threads, segs = scan_geometry(length, "affine")
+    lib = _scan_lib()
     with torch.cuda.device(m.device):
-        err = lib.tb_affine_scan(
-            m.data_ptr(),
-            accs[0].data_ptr(),
-            accs[1].data_ptr() if len(accs) == 2 else None,
-            outs[0].data_ptr(),
-            outs[1].data_ptr() if len(accs) == 2 else None,
-            rows,
-            length,
-            len(accs),
-            _stream(m),
-        )
-    check(err, "affine_hash_scan")
-    _count("affine_scan", rows, length)
+        err = lib.tb_affine_scan(*ptrs, rows, length, k, cluster, threads, segs, _stream(m))
+    if err != 0:
+        raise RuntimeError(f"affine_hash_scan: CUDA error {err}")
+    _count("affine_scan", rows, length, k)
     return outs
 
 
 def dfa_compose_scan(fns: torch.Tensor, n_states: int) -> torch.Tensor:
     """Inclusive scan of nibble-packed DFA transition maps along axis 1, for
     ``n_states`` <= 8.  ``fns`` is a contiguous int32 ``[rows, len]``
-    tensor whose nibbles hold states below ``n_states``."""
-    if fns.device.type == "cpu":
-        return dfa_compose_scan_plain(fns, n_states)
-    if fns.device.type != "cuda":
+    tensor whose nibbles below ``n_states`` hold states below 8 (valid maps
+    hold states below ``n_states``)."""
+    if not fns.is_cuda:
+        if fns.device.type == "cpu":
+            return dfa_compose_scan_plain(fns, n_states)
         raise ValueError(f"dfa_compose_scan: unsupported device {fns.device}")
     if not 1 <= n_states <= 8:
         raise ValueError("dfa_compose_scan: the kernel takes 1..8 states")
     _check("dfa_compose_scan", (fns,))
-    from ..kernels.build import check, load
-
-    lib = load("scan")
-    out = torch.empty_like(fns)
     rows, length = fns.shape
+    out = fns.new_empty((rows, length))
+    if rows == 0 or length == 0:
+        return out
+    cluster, threads, segs = scan_geometry(length, "dfa")
+    lib = _scan_lib()
     with torch.cuda.device(fns.device):
-        err = lib.tb_dfa_scan(
-            fns.data_ptr(), out.data_ptr(), rows, length, n_states, _stream(fns)
-        )
-    check(err, "dfa_compose_scan")
-    _count("dfa_scan", rows, length)
+        err = lib.tb_dfa_scan(fns.data_ptr(), out.data_ptr(), rows, length, n_states, cluster,
+                              threads, segs, _stream(fns))
+    if err != 0:
+        raise RuntimeError(f"dfa_compose_scan: CUDA error {err}")
+    _count("dfa_scan", rows, length, n_states)
     return out
 
 
