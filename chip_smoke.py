@@ -17,7 +17,9 @@ Phases (any failure exits non-zero without the final result line):
    edge of ``scan_geometry`` (1 .. 70000 lanes on 1, 7, 64 and 65 rows),
    on aligned tensors and offset views; ``fused_scan`` with each of its four call
    sites' group lists and two generic lists, also beyond its 16384-lane
-   gate; ``chain_scan`` with every call site's program, built by the sites'
+   gate, and at its edges (one and zero lanes in both emit modes, 1, 7
+   and 65 rows, DFA maps with stray nibbles at 1..8 states, offset views
+   at ragged widths); ``chain_scan`` with every call site's program, built by the sites'
    own builders on batches of corpus documents of each bucket (both C4
    split modes; above 16384 lanes the sorted-table programs, 8192 and
    16384 wide), with the JAX package's probe program and with a generic
@@ -557,22 +559,45 @@ def kernel_phase(corpus):
             fail(f"sort2 differs from its plain version at {[rows, width]}")
         errs["sort2"] = max(errs["sort2"], max_err(got, want))
     # fused_scan: every call site's group list and the generic lists, at the
-    # fused buckets, beyond the gate (any width works) and a ragged shape.
+    # fused buckets, beyond the gate (any width works) and a ragged shape;
+    # then its edges: one and zero lanes in both emit modes, 1, 7 and 65
+    # rows, DFA maps with stray nibbles at 1..8 states, and offset views
+    # (scalar accesses) at ragged widths.
     errs["fused_scan"] = 0
+
+    def check_fused(label, groups):
+        got = scan.fused_scan(groups)
+        torch.cuda.synchronize()
+        want = scan.fused_scan_plain(groups)
+        for g, w in zip(got, want):
+            if len(g) != len(w) or not all(
+                x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w)
+            ):
+                fail(f"fused_scan differs from its plain version: {label}")
+            errs["fused_scan"] = max(errs["fused_scan"], max_err(g, w))
+
     fused_shapes = [(64, n) for n in (512, 2048, 8192, 16384, 32768, 65536)] + [(37, 1000)]
     for shape in fused_shapes:
         for name, make in fused_site_lists(full_range, packed_maps_, shape).items():
-            groups = make()
-            got = scan.fused_scan(groups)
-            torch.cuda.synchronize()
-            want = scan.fused_scan_plain(groups)
-            for g, w in zip(got, want):
-                if len(g) != len(w) or not all(
-                    x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w)
-                ):
-                    fail(f"fused_scan differs from its plain version at {shape}, list {name}")
-                errs["fused_scan"] = max(errs["fused_scan"], max_err(g, w))
-            del groups, got, want
+            check_fused(f"list {name} at {list(shape)}", make())
+    aff, add, dfa = scan.affine_group, scan.add_group, scan.dfa_group
+
+    def fused_edge_lists(shape, view):
+        r = [view(full_range(shape)) for _ in range(7)]
+        head = [aff(r[0], (r[1],)), aff(r[1], r[2:7], emit="last"), add((r[2], r[3])),
+                add((r[4],), emit="last")]
+        for states in ((1, 2, 3, 4), (5, 6, 7, 8)):
+            yield head + [dfa(view(packed_maps(rng, shape, ns, dev, stray=True)), ns,
+                              emit="last" if i % 2 else "scan")
+                          for i, ns in enumerate(states)]
+
+    fused_edges = [(r, n, "aligned") for r in (1, 7, 65) for n in (0, 1, 2, 129, 1000, 2049, 8193,
+                                                                    16385)]
+    fused_edges += [(r, n, "offset") for r in (7, 65) for n in (1, 513, 1000, 4097)]
+    for rows, width, view_name in fused_edges:
+        view = offset_view if view_name == "offset" else (lambda t: t)
+        for groups in fused_edge_lists((rows, width), view):
+            check_fused(f"edge list at {[rows, width]} ({view_name})", groups)
     # chain_scan: every call site's program, built by the sites' own builders
     # on corpus batches of the chain buckets and a ragged shape, and the
     # sorted-table programs on batches of the two wider buckets (tables 8192
@@ -637,7 +662,8 @@ def kernel_phase(corpus):
         errs["sort3"] = max(errs["sort3"], max_err(got, want))
     print(f"kernels exact: affine_scan (k = 1, 2) and dfa_scan (n_states 1..8) at "
           f"{scan_shapes}, aligned and offset, "
-          f"sort2 at {sort_shapes}, fused_scan at {fused_shapes}, chain_scan at "
+          f"sort2 at {sort_shapes}, fused_scan at {fused_shapes} and its edges {fused_edges}, "
+          f"chain_scan at "
           f"{sorted(chain_widths)} (sites {sorted(sites)} on batches {text_shapes}; probe and "
           f"generic at {generic_shapes}), sort3 at 64 x {sort3_widths}", flush=True)
 

@@ -4,30 +4,35 @@ in one process.
 
     git archive <commit> textblaster_tpu_torch/csrc | tar -x -C build/kernel_ab/parent
     python3 kernel_ab.py --parent build/kernel_ab/parent/textblaster_tpu_torch/csrc \
-        [--kernels affine_scan,dfa_scan,sort2,chain_scan] [--sweep]
+        [--kernels affine_scan,dfa_scan,sort2,chain_scan,fused_scan] [--sweep]
 
-The earlier ``scan.cu``, ``sort.cu`` and ``chain.cu`` (with their
-``scan_ops.cuh``), those the chosen kernels need, are compiled with the
-flags of ``textblaster_tpu_torch/kernels/build.py`` into
-``build/kernel_ab/old/`` and called through the earlier wrappers' steps
-(the earlier scan wrappers import ``kernels.build``, check and allocate on
-every call; the earlier ``chain_scan`` -- commit 1137dbf's ABI -- plans,
-encodes and checks its program on every call; ``_chain_plan`` and
-``_chain_code`` are unchanged, so this tree's are used).  At every
-main-path shape -- ``affine_scan`` (k = 1 and 2) and ``dfa_scan`` (4 and 5
-states) on 64 rows of 512 .. 65536 lanes, ``sort2`` on 256 rows of 256 ..
-16384 keys and 320 rows of 16384 (and 64 rows of 32768 and 65536),
-``chain_scan`` with every call site's program, made by the site's own
-code (``chip_smoke.site_programs``) on 64-row batches of each bucket --
-the two are held to the plain version with ``torch.equal``
-and timed in turns, earlier, new, new, earlier: the kernel replayed from a
-CUDA graph (device time) and the wrapper's eager call (host cost
-included), as ``chip_smoke.py`` times them; for ``sort2`` also
-``torch.sort`` of the packed int64.  ``--sweep`` also times this tree's
-scan kernels under other geometries than ``scan_geometry``'s at the same
-shapes (each held to the plain version first).  The table goes to
-standard output and to ``ab.json`` in ``$AB_OUT`` (default
-``build/kernel_ab``).  Needs a GPU and ``nvcc``.
+The earlier ``scan.cu``, ``sort.cu``, ``chain.cu`` and ``fused.cu`` (with
+their ``scan_ops.cuh``), those the chosen kernels need, and this tree's are
+compiled with the flags of ``textblaster_tpu_torch/kernels/build.py`` into
+``build/kernel_ab/old/`` and ``build/kernel_ab/new/``, and the ``ptxas
+-v`` lines of both (registers, stack, spills) are printed.  The earlier
+sources are those of commit a44c680, or any later tree with the same C
+interfaces: the per-scan kernels, ``sort2`` and ``chain_scan`` are called
+through this tree's wrappers (unchanged since then), pointed at the
+earlier or at this tree's library before every call of either;
+``fused_scan`` through the earlier wrapper's steps (``load``, five ctypes
+arrays, the earlier entry).  At every main-path shape -- ``affine_scan`` (k = 1 and 2) and
+``dfa_scan`` (4 and 5 states) on 64 rows of 512 .. 65536 lanes, ``sort2``
+on 256 rows of 256 .. 16384 keys and 320 rows of 16384 (and 64 rows of
+32768 and 65536), ``chain_scan`` with every call site's program, made by
+the site's own code (``chip_smoke.site_programs``) on 64-row batches of
+each bucket, ``fused_scan`` with every call site's group list
+(``chip_smoke.fused_site_lists``) on 64 rows of 512, 2048 and 8192 lanes
+-- the two are held to the plain version with ``torch.equal`` and timed
+in turns, earlier, new, new, earlier: the kernel replayed from a CUDA
+graph (device time) and the wrapper's eager call (host cost included), as
+``chip_smoke.py`` times them; for ``sort2`` also ``torch.sort`` of the
+packed int64.  ``--sweep`` also times this tree's scan kernels under other
+geometries than ``scan_geometry``'s, and ``fused_scan`` under other thread
+counts than ``fused_geometry``'s, at the same shapes (each held to the
+plain version first).  The table goes to standard output and to
+``ab.json`` in ``$AB_OUT`` (default ``build/kernel_ab``).  Needs a GPU and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,78 +51,123 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (the corpus, site programs and timers)
 
 
-def build_old(src_dir: str, out_dir: str, names):
-    """The earlier sources' libraries ``names``, compiled concurrently."""
+def ptxas_lines(log: str):
+    """The register, stack and spill lines of a ``ptxas -v`` report."""
+    return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def build_libs(src_dir: str, out_dir: str, names, side: str):
+    """``side``'s libraries ``names`` from the sources in ``src_dir``,
+    compiled concurrently; prints each one's ``ptxas -v`` lines."""
     from textblaster_tpu_torch.kernels import build as kb
 
     os.makedirs(out_dir, exist_ok=True)
     nvcc = kb.nvcc_path()
     procs = {}
     for name in names:
-        out = os.path.join(out_dir, f"libold_{name}.so")
+        out = os.path.join(out_dir, f"lib{side}_{name}.so")
         procs[name] = (out, subprocess.Popen(
             [nvcc, *kb._FLAGS, "-o", out, os.path.join(src_dir, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"  ptxas old {name}: " + " | ".join(regs), flush=True)
+        print(f"  ptxas {side} {name}: " + " | ".join(ptxas_lines(log)), flush=True)
         if proc.returncode != 0:
-            cs.fail(f"nvcc failed for the earlier {name}.cu:\n{log}")
+            cs.fail(f"nvcc failed for the {side} {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(out)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-    if "scan" in libs:
-        libs["scan"].tb_affine_scan.argtypes = [p, p, p, p, p, i, i, i, p]
-        libs["scan"].tb_affine_scan.restype = i
-        libs["scan"].tb_dfa_scan.argtypes = [p, p, i, i, i, p]
-        libs["scan"].tb_dfa_scan.restype = i
-    if "sort" in libs:
-        libs["sort"].tb_sort2.argtypes = [p, p, p, p, p, i, i, i, p]
-        libs["sort"].tb_sort2.restype = i
-    if "chain" in libs:
-        libs["chain"].tb_chain_scan.argtypes = [ip, i, pp, i, pp, i, i, i, p]
-        libs["chain"].tb_chain_scan.restype = i
+        kb._declare(name, libs[name])
+    if "fused" in libs and side == "old":  # the earlier fused entry
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+        libs["fused"].tb_fused_scan.argtypes = [i, ip, ip, ip, ip, pp, i, pp, i, i, i, p]
+        libs["fused"].tb_fused_scan.restype = i
     return libs
 
 
-def old_affine(lib, m, accs):
-    """The earlier ``affine_hash_scan`` wrapper's steps on the earlier
-    kernel (one CTA per row over 2048-lane tiles)."""
+#: Per side ("old", "new"): the libraries of this tree's per-scan, sort
+#: and chain wrappers, and that side's cache of encoded chain programs (a
+#: program's C handle belongs to one library).  Filled in main().
+SIDES = {}
+
+
+def use(side):
+    """Points this tree's ``affine_scan``, ``dfa_scan``, ``sort2`` and
+    ``chain_scan`` wrappers at ``side``'s libraries: a few stores, made
+    before every call of either side."""
+    from textblaster_tpu_torch.kernels import build as kb
+    from textblaster_tpu_torch.ops import scan
+
+    libs, programs = SIDES[side]
+    kb._loaded.update(libs)
+    scan._SCAN_LIB[:] = [libs["scan"]]
+    scan._CHAIN_PROGRAMS = programs
+
+
+def on(side, fn):
+    """``fn`` called on ``side``'s libraries."""
+    def call():
+        use(side)
+        return fn()
+
+    return call
+
+
+def old_fused(lib, groups):
+    """The earlier ``fused_scan`` wrapper's steps on the earlier kernel (one
+    CTA per row over 2048-lane shared-memory tiles)."""
     import torch
 
     from textblaster_tpu_torch.kernels.build import check
     from textblaster_tpu_torch.ops import scan
 
-    scan._check("affine_hash_scan", (m,) + tuple(accs))
-    outs = tuple(torch.empty_like(a) for a in accs)
-    rows, length = m.shape
-    two = len(accs) == 2
-    with torch.cuda.device(m.device):
-        err = lib.tb_affine_scan(m.data_ptr(), accs[0].data_ptr(),
-                                 accs[1].data_ptr() if two else None, outs[0].data_ptr(),
-                                 outs[1].data_ptr() if two else None, rows, length, len(accs),
-                                 torch.cuda.current_stream(m.device).cuda_stream)
-    check(err, "old affine_scan")
+    specs = [scan._fused_spec(g) for g in groups]
+    xs = tuple(x for g in groups for x in g["xs"])
+    scan._check("fused_scan", xs)
+    rows, length = xs[0].shape
+    outs = []
+    for _, _, _, emit_idx, emit_last in specs:
+        shape = (rows, 1) if emit_last else (rows, length)
+        outs.extend(torch.empty(shape, dtype=torch.int32, device=xs[0].device) for _ in emit_idx)
+
+    def ints(vals):
+        return (ctypes.c_int * len(vals))(*vals)
+
+    kinds = ints([scan._KINDS[g["kind"]] for g in groups])
+    n_in = ints([len(g["xs"]) for g in groups])
+    last = ints([int(s[4]) for s in specs])
+    n_states = ints([g.get("n_states", 0) for g in groups])
+    in_ptrs = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
+    out_ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    with torch.cuda.device(xs[0].device):
+        err = lib.tb_fused_scan(len(groups), kinds, n_in, last, n_states, in_ptrs, len(xs),
+                                out_ptrs, len(outs), rows, length,
+                                torch.cuda.current_stream(xs[0].device).cuda_stream)
+    check(err, "old fused_scan")
     return outs
 
 
-def old_dfa(lib, fns, n_states):
-    """The earlier ``dfa_compose_scan`` wrapper's steps on the earlier kernel."""
+def fused_with(groups, threads):
+    """This tree's ``fused_scan`` kernel launched with ``threads`` threads a
+    CTA instead of ``fused_geometry``'s; the emitted streams, flat."""
     import torch
 
-    from textblaster_tpu_torch.kernels.build import check
     from textblaster_tpu_torch.ops import scan
 
-    scan._check("dfa_compose_scan", (fns,))
-    out = torch.empty_like(fns)
-    rows, length = fns.shape
-    with torch.cuda.device(fns.device):
-        err = lib.tb_dfa_scan(fns.data_ptr(), out.data_ptr(), rows, length, n_states,
-                              torch.cuda.current_stream(fns.device).cuda_stream)
-    check(err, "old dfa_scan")
-    return (out,)
+    specs = [scan._fused_spec(g) for g in groups]
+    xs = tuple(x for g in groups for x in g["xs"])
+    rows, length = xs[0].shape
+    outs = tuple(torch.empty((rows, 1) if s[4] else (rows, length), dtype=torch.int32,
+                             device=xs[0].device) for s in specs for _ in s[3])
+    code = [v for g, s in zip(groups, specs)
+            for v in (scan._KINDS[g["kind"]], len(g["xs"]), int(s[4]), g.get("n_states", 0))]
+    ptrs = [t.data_ptr() for t in xs + outs]
+    err = scan._fused_lib().tb_fused_scan(
+        (ctypes.c_int * len(code))(*code), len(groups), (ctypes.c_void_p * len(ptrs))(*ptrs),
+        len(xs), len(outs), rows, length, threads, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_scan with {threads} threads: CUDA error {err}")
+    return outs
 
 
 def scan_with(kind, xs, variant, geo):
@@ -126,9 +176,7 @@ def scan_with(kind, xs, variant, geo):
     ``scan_geometry``'s."""
     import torch
 
-    from textblaster_tpu_torch.ops import scan
-
-    lib = scan._scan_lib()
+    lib = SIDES["new"][0]["scan"]
     fn = lib.tb_affine_scan if kind == "affine_scan" else lib.tb_dfa_scan
     rows, length = xs[0].shape
     stream = torch.cuda.current_stream().cuda_stream
@@ -161,56 +209,8 @@ SWEEP = {
     ("dfa", 32768): [(8, 256, 1), (8, 64, 4)],
     ("dfa", 65536): [(8, 256, 2), (8, 64, 8)],
 }
-
-
-def old_sort2(lib, k1, k2):
-    """The earlier ``sort2`` wrapper's steps on the earlier kernel."""
-    import torch
-
-    from textblaster_tpu_torch.kernels.build import check
-    from textblaster_tpu_torch.ops import sort
-
-    sort._check("sort2", (k1, k2))
-    rows, m = k1.shape
-    o1, o2 = torch.empty_like(k1), torch.empty_like(k2)
-    mp = max(2, 1 << (m - 1).bit_length())
-    scratch = (torch.empty((rows, mp), dtype=torch.int64, device=k1.device)
-               if mp > sort.SMEM_WIDTH else None)
-    with torch.cuda.device(k1.device):
-        err = lib.tb_sort2(k1.data_ptr(), k2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
-                           scratch.data_ptr() if scratch is not None else None, rows, m, mp,
-                           torch.cuda.current_stream(k1.device).cuda_stream)
-    check(err, "old sort2")
-    return o1, o2
-
-
-def old_chain(lib, passes):
-    """The earlier ``chain_scan`` wrapper's steps on the earlier kernel: plan,
-    check and encode on every call, then launch."""
-    import torch
-
-    from textblaster_tpu_torch.kernels.build import check
-    from textblaster_tpu_torch.ops import scan
-
-    passes = list(passes)
-    plan, ext, out_modes, n_scratch, layout = scan._chain_plan(passes)
-    dev = ext[0].device
-    scan._check("chain_scan", ext)
-    code = scan._chain_code(plan, len(out_modes))
-    rows, length = ext[0].shape
-    outs = [torch.empty((rows, 1) if m == "last" else (rows, length), dtype=torch.int32,
-                        device=dev) for m in out_modes]
-    scratch = (torch.empty((n_scratch, rows, length), dtype=torch.int32, device=dev)
-               if n_scratch else None)
-    slots = [o.data_ptr() for o in outs] + [scratch[j].data_ptr() for j in range(n_scratch)]
-    with torch.cuda.device(dev):
-        err = lib.tb_chain_scan(
-            (ctypes.c_int * len(code))(*code), len(code),
-            (ctypes.c_void_p * len(ext))(*(x.data_ptr() for x in ext)), len(ext),
-            (ctypes.c_void_p * len(slots))(*slots), len(slots), rows, length,
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "old chain_scan")
-    return [[tuple(outs[s] for s in g_slots) for g_slots in p_layout] for p_layout in layout]
+#: Threads a CTA the fused sweep tries, at every width.
+FUSED_SWEEP = (64, 128, 256, 512)
 
 
 def _flat(res):
@@ -221,7 +221,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, help="directory of the earlier csrc/ sources")
     ap.add_argument("--docs", type=int, default=4000, help="corpus documents for the batches")
-    ap.add_argument("--kernels", default="affine_scan,dfa_scan,sort2,chain_scan",
+    ap.add_argument("--kernels", default="affine_scan,dfa_scan,sort2,chain_scan,fused_scan",
                     help="comma-separated subset")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the scan kernels under other geometries")
@@ -238,14 +238,18 @@ def main() -> int:
     from textblaster_tpu_torch.ops import scan, sort
 
     out_dir = os.environ.get("AB_OUT") or os.path.join(ROOT, "build", "kernel_ab")
-    libs = {"affine_scan": "scan", "dfa_scan": "scan", "sort2": "sort", "chain_scan": "chain"}
-    names = sorted({libs[k] for k in kernels})
-    kb.build()
-    for name in names:
-        regs = [ln.strip() for ln in kb.ptxas_report.get(name, "").splitlines() if "registers" in ln]
-        print(f"  ptxas new {name}: " + " | ".join(regs), flush=True)
-    old = build_old(os.path.abspath(args.parent), os.path.join(ROOT, "build", "kernel_ab", "old"),
-                    names)
+    libs = {"affine_scan": "scan", "dfa_scan": "scan", "sort2": "sort", "chain_scan": "chain",
+            "fused_scan": "fused"}
+    names = sorted({libs[k] for k in kernels} | {"scan"})
+    ab_dir = os.path.join(ROOT, "build", "kernel_ab")
+    new = build_libs(os.path.join(ROOT, "textblaster_tpu_torch", "csrc"),
+                     os.path.join(ab_dir, "new"), names, "new")
+    old = build_libs(os.path.abspath(args.parent), os.path.join(ab_dir, "old"), names, "old")
+    wrapped = [n for n in names if n != "fused"]
+    SIDES["old"] = ({n: old[n] for n in wrapped}, {})
+    SIDES["new"] = ({n: new[n] for n in wrapped}, {})
+    scan._FUSED_LIB[:] = [new["fused"]] if "fused" in new else []
+    use("new")  # the chain sites' builders run chain_scan themselves
     dev = torch.device("cuda")
     rng = np.random.default_rng(cs.SEED)
     rows_out = []
@@ -273,15 +277,15 @@ def main() -> int:
               f"{t['old_call'][0]:.4f} {t['old_call'][1]:.4f} new {t['new_call'][0]:.4f} "
               f"{t['new_call'][1]:.4f} | bound {bound['bound_ms']:.4f}{lib_s}", flush=True)
 
-    def sweep(kind, variant, xs, geo, plain):
-        got = scan_with(kind, xs, variant, geo)
+    def sweep(kind, label, shape, geo, fn, plain):
+        got = fn()
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, plain)):
-            cs.fail(f"{kind} differs from its plain version under geometry {geo}")
-        ms = cs.graph_ms(lambda: scan_with(kind, xs, variant, geo))
-        rows_out.append({"kernel": kind, "label": f"sweep {variant}", "shape": list(xs[0].shape),
-                         "geometry": list(geo), "new": [ms]})
-        print(f"  {kind:10s} {'sweep ' + str(variant):28s} {str(list(xs[0].shape)):14s} "
+            cs.fail(f"{kind} differs from its plain version under geometry {geo}: {label}")
+        ms = cs.graph_ms(fn)
+        rows_out.append({"kernel": kind, "label": f"sweep {label}", "shape": list(shape),
+                         "geometry": geo, "new": [ms]})
+        print(f"  {kind:10s} {'sweep ' + label:28s} {str(list(shape)):14s} "
               f"geometry {geo} kernel {ms:.4f}", flush=True)
 
     scan_widths = (512, 2048, 8192, 32768, 65536)
@@ -298,21 +302,43 @@ def main() -> int:
             for k in (1, 2):
                 accs = (a1, a2)[:k]
                 plain = scan.affine_hash_scan_plain(m, accs)
+                call = lambda: scan.affine_hash_scan(m, accs)  # noqa: E731
                 ab("affine_scan", f"k={k}", shape, cs.bound(*cs.scan_cost("affine_scan", b, n, k)),
-                   lambda: old_affine(old["scan"], m, accs),
-                   lambda: scan.affine_hash_scan(m, accs), plain)
+                   on("old", call), on("new", call), plain)
                 for geo in SWEEP[("affine", width)] if args.sweep else ():
-                    sweep("affine_scan", k, (m,) + accs, geo, plain)
+                    sweep("affine_scan", str(k), shape, list(geo),
+                          lambda: scan_with("affine_scan", (m,) + accs, k, geo), plain)
         if "dfa_scan" in kernels:
             for ns in (4, 5):
                 f = cs.packed_maps(rng, shape, ns, dev)
                 plain = (scan.dfa_compose_scan_plain(f, ns),)
+                call = lambda: (scan.dfa_compose_scan(f, ns),)  # noqa: E731
                 ab("dfa_scan", f"n_states={ns}", shape,
                    cs.bound(*cs.scan_cost("dfa_scan", b, n, ns)),
-                   lambda: old_dfa(old["scan"], f, ns),
-                   lambda: (scan.dfa_compose_scan(f, ns),), plain)
+                   on("old", call), on("new", call), plain)
                 for geo in SWEEP[("dfa", width)] if args.sweep else ():
-                    sweep("dfa_scan", ns, (f,), geo, plain)
+                    sweep("dfa_scan", str(ns), shape, list(geo),
+                          lambda: scan_with("dfa_scan", (f,), ns, geo), plain)
+
+    def full_range_of(shape):
+        return torch.from_numpy(rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    for width in (512, 2048, 8192) if "fused_scan" in kernels else ():
+        shape = (64, width)
+        lists = cs.fused_site_lists(full_range_of, lambda s, ns: cs.packed_maps(rng, s, ns, dev),
+                                    shape)
+        for site, make in lists.items():
+            if site.startswith("generic") or site == "structure_wide":
+                continue
+            groups = make()
+            plain = [x for g in scan.fused_scan_plain(groups) for x in g]
+            ab("fused_scan", site, shape, cs.bound(*cs.fused_cost(groups)),
+               lambda: old_fused(old["fused"], groups),
+               lambda: [x for g in scan.fused_scan(groups) for x in g], plain)
+            for threads in FUSED_SWEEP if args.sweep else ():
+                sweep("fused_scan", site, shape, [threads],
+                      lambda: fused_with(groups, threads), plain)
 
     sort_shapes = ((256, 256), (256, 512), (256, 2048), (256, 8192), (256, 16384),
                    (320, 16384), (64, 32768), (64, 65536))
@@ -324,9 +350,10 @@ def main() -> int:
         z = (k1.long() << 32) | k2.long()
         lg = max(1, (width - 1).bit_length())
         exchanges = rows * (1 << lg) // 2 * lg * (lg + 1) // 2
+        call = lambda: sort.sort2(k1, k2)  # noqa: E731
         ab("sort2", "", (rows, width), cs.bound(16.0 * rows * width, 3.0 * exchanges),
-           lambda: old_sort2(old["sort"], k1, k2), lambda: sort.sort2(k1, k2),
-           sort.sort2_plain(k1, k2), library=lambda: torch.sort(z, dim=1))
+           on("old", call), on("new", call), sort.sort2_plain(k1, k2),
+           library=lambda: torch.sort(z, dim=1))
 
     t0 = time.perf_counter()
     corpus = cs.make_corpus(args.docs if "chain_scan" in kernels else 0, cs.SEED)
@@ -335,9 +362,9 @@ def main() -> int:
     for shape in chain_shapes if "chain_scan" in kernels else ():
         for site, passes in cs.site_programs(corpus, shape, dev).items():
             width = tuple(scan._chain_plan(passes)[1][0].shape)
+            call = lambda: _flat(scan.chain_scan(passes))  # noqa: E731
             ab("chain_scan", f"{site}@{shape[1]}", width, cs.bound(*cs.chain_cost(passes)),
-               lambda: _flat(old_chain(old["chain"], passes)),
-               lambda: _flat(scan.chain_scan(passes)), _flat(scan.chain_scan_plain(passes)))
+               on("old", call), on("new", call), _flat(scan.chain_scan_plain(passes)))
 
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ab.json"), "w") as f:

@@ -1,7 +1,8 @@
 """The port's boundary: no JAX, no JAX package, no silent CPU fallback.
 
-* An AST walk over ``textblaster_tpu_torch/`` and ``chip_smoke.py`` finds no
-  ``import jax`` and no import of ``textblaster_tpu``.
+* An AST walk over ``textblaster_tpu_torch/``, ``chip_smoke.py`` and
+  ``kernel_ab.py`` finds no ``import jax`` and no import of
+  ``textblaster_tpu``.
 * A subprocess with ``sys.modules["jax"] = None`` imports the port and runs
   one tiny batch through ``CompiledPipeline(device="cpu")``.
 * Without CUDA, an entry point called without ``device=`` raises.
@@ -29,6 +30,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "kernel_ab.py")
 
 
 def _imported_roots(path):

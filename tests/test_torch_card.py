@@ -179,6 +179,57 @@ def test_fused_kernel_matches_plain(cuda, shape):
         assert all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w))
 
 
+def _fused_edge_groups(rng, shape, dev, states, view=lambda t: t):
+    """Affine k = 1 and 5 (two units), add scan and last, dfa groups with
+    stray nibbles above ``states``, alternately scan and last."""
+    r = [view(_full_range(rng, shape, dev)) for _ in range(7)]
+    groups = [scan.affine_group(r[0], (r[1],)), scan.affine_group(r[1], r[2:7], emit="last"),
+              scan.add_group((r[2], r[3])), scan.add_group((r[4],), emit="last")]
+    for i, ns in enumerate(states):
+        f = view(_maps_with_stray_nibbles(rng, shape, ns, dev))
+        groups.append(scan.dfa_group(f, ns, emit="last" if i % 2 else "scan"))
+    return groups
+
+
+def _fused_equal(groups):
+    before = scan.LAUNCHES["fused_scan"]
+    got = scan.fused_scan(groups)
+    torch.cuda.synchronize()
+    want = scan.fused_scan_plain(groups)
+    assert scan.LAUNCHES["fused_scan"] == before + (1 if groups[0]["xs"][0].shape[0] else 0)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        assert all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(g, w))
+
+
+#: Every width where a unit of csrc/fused.cu changes its segment count or
+#: thread count, one either side, and one and zero lanes.
+FUSED_EDGE_WIDTHS = [0, 1, 2, 127, 128, 129, 1023, 1024, 1025, 2049, 4095, 4096, 4097, 8193,
+                     65536]
+
+
+@pytest.mark.parametrize("rows", [1, 7, 65])
+@pytest.mark.parametrize("width", FUSED_EDGE_WIDTHS)
+def test_fused_kernel_matches_plain_at_geometry_edges(cuda, width, rows):
+    """One launch per list, exact, on aligned tensors and offset views
+    (scalar accesses), DFA maps with stray nibbles at 1..8 states, both
+    emit modes (len 1: the lane as it is; len 0: a carry is the identity)."""
+    rng = np.random.default_rng(width * 10 + rows)
+    for view in (lambda t: t, _offset_view) if width else (lambda t: t,):
+        for states in ((1, 2, 3, 4), (5, 6, 7, 8)):
+            _fused_equal(_fused_edge_groups(rng, (rows, width), cuda, states, view))
+
+
+def test_fused_kernel_matches_plain_on_fineweb_stats_list(cuda):
+    """``fineweb_stats``' list (the chain schedule's one fused call) at
+    [64, 8192]: a three-accumulator line group, a line hash, a reversed
+    counter and two row totals."""
+    rng = np.random.default_rng(8192)
+    r = [_full_range(rng, (64, 8192), cuda) for _ in range(10)]
+    _fused_equal([scan.affine_group(r[0], r[1:4]), scan.affine_group(r[4], (r[5],)),
+                  scan.affine_group(r[6], (r[7],)), scan.add_group(r[8:10], emit="last")])
+
+
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):  # 9 groups

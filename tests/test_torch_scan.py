@@ -5,7 +5,10 @@
 ``_pallas_scan_tuple`` run in interpret mode and its lax twin
 (``jax.lax.associative_scan``) on the same int32 inputs.  The CUDA kernels
 themselves are compared with these plain versions on the card by
-``tests/test_torch_card.py`` and ``chip_smoke.py``.
+``tests/test_torch_card.py`` and ``chip_smoke.py``; here a numpy model of
+their schedule (``csrc/scan_ops.cuh``'s row scan under ``scan_geometry``,
+and ``csrc/fused.cu``'s scan units under ``fused_geometry``) is held to
+the plain versions at every edge of the geometry.
 """
 
 import functools
@@ -359,17 +362,18 @@ def _fold(op, e):
     return agg
 
 
-def _model_scan(op, raw, swap=None):
-    """``csrc/scan.cu`` on the rows of ``raw`` (uint32 ``[R, L]`` streams)
-    under ``scan_geometry(L, op)``: each thread's consecutive lanes, the
-    warp scan, the warps' fold, the cluster's fold in rank order and the
-    carry across segments.  ``swap`` names a fold done with the later
-    operand on the left (``"lanes"``, ``"warps"``, ``"chunks"``,
-    ``"carry"``)."""
+def _model_scan(op, raw, swap=None, geo=None, last=False):
+    """``scan_ops.cuh``'s row scan on the rows of ``raw`` (uint32 ``[R, L]``
+    streams) under the geometry ``geo`` (``(cluster, threads, segments)``;
+    ``csrc/scan.cu``'s ``scan_geometry(L, op)`` by default): each thread's
+    consecutive lanes, the warp scan, the warps' fold, the cluster's fold in
+    rank order and the carry across segments; with ``last`` only the row's
+    total, ``[R, 1]``.  ``swap`` names a fold done with the later operand
+    on the left (``"lanes"``, ``"warps"``, ``"chunks"``, ``"carry"``)."""
     rows, length = raw[0].shape
     if length == 1:
         return op.raw_outs(raw)
-    c, t, segs = scan.scan_geometry(length, op.name)
+    c, t, segs = geo or scan.scan_geometry(length, op.name)
     it = scan.SCAN_ITEMS[op.name]
     n_warps, total = t // 32, segs * c * t * it
     pad = tuple(np.concatenate([r, np.full((rows, total - length), i, _U32)], 1)
@@ -391,6 +395,8 @@ def _model_scan(op, raw, swap=None):
         pre = op.combine(op.combine(op.combine(carry, chunk_pref), warp_pref), excl)
         out_segs.append(tuple(o.reshape(rows, -1) for o in _walk(op, e, pre)))
         carry = op.combine(seg_total, carry) if swap == "carry" else op.combine(carry, seg_total)
+    if last:
+        return tuple(o.reshape(rows, 1) for o in op.outs(carry))
     return tuple(np.concatenate([o[k] for o in out_segs], 1)[:, :length]
                  for k in range(len(out_segs[0])))
 
@@ -504,3 +510,152 @@ def test_scan_model_fails_with_a_swapped_fold(swap, width):
     fns = _maps_with_stray_nibbles(rng, shape, 5)
     (got,) = _model_scan(_Dfa(5), (_u32(fns),), swap=swap)
     assert not np.array_equal(got.view(np.int32), scan.dfa_compose_scan_plain(_t(fns), 5).numpy())
+
+
+# --- the schedule of csrc/fused.cu, modelled in numpy ----------------------------
+#
+# fused.cu splits a group list into scan units (an affine group into units of
+# the multiplier and up to four accumulators, an add group into one unit per
+# stream, a dfa group into one unit) and runs scan_ops.cuh's row scan for
+# each (row, unit) with fused_geometry's threads, no cluster, and
+# ceil(len / (threads * ITEMS)) segments.  The model below does the same on
+# numpy inputs and is held to fused_scan_plain at every width where a unit's
+# segment count changes, and at one and zero lanes.
+
+
+class _Add:
+    """``Add<1>`` of scan_ops.cuh: one running sum."""
+
+    name = "add"
+    raw_identity = (0,)
+
+    def identity(self, shape):
+        return (np.zeros(shape, dtype=_U32),)
+
+    def combine(self, x, y):
+        return (x[0] + y[0],)
+
+    def elem(self, raw):
+        return raw
+
+    step = combine
+
+    def outs(self, s):
+        return s
+
+    def raw_outs(self, raw):
+        return raw
+
+
+def _fused_units(groups):
+    """The unit split of fused.cu's entry: ``(op, inputs, outputs, last)``
+    per unit, where ``outputs`` index the flat list of emitted streams."""
+    units, out_i = [], 0
+    for kind, xs, last, ns in groups:
+        if kind == "affine":
+            for a in range(1, len(xs), 4):
+                k = min(4, len(xs) - a)
+                units.append((_Affine(k), (xs[0],) + xs[a:a + k],
+                              list(range(out_i + a - 1, out_i + a - 1 + k)), last))
+            out_i += len(xs) - 1
+        elif kind == "add":
+            units += [(_Add(), (x,), [out_i + s], last) for s, x in enumerate(xs)]
+            out_i += len(xs)
+        else:
+            units.append((_Dfa(ns), xs, [out_i], last))
+            out_i += 1
+    return units, out_i
+
+
+def _model_fused(groups, swap=None):
+    """fused.cu on ``groups`` (``(kind, numpy streams, emit_last, n_states)``):
+    every unit's row scan, the flat emitted streams in group order."""
+    rows, length = groups[0][1][0].shape
+    threads = scan.fused_geometry(length)
+    units, n_out = _fused_units(groups)
+    flat = [None] * n_out
+    for op, xs, outs, last in units:
+        items = scan.SCAN_ITEMS[op.name]
+        geo = (1, threads, -(-length // (threads * items)))
+        if length == 0 and not last:
+            got = tuple(np.zeros((rows, 0), _U32) for _ in outs)
+        else:
+            got = _model_scan(op, tuple(_u32(x) for x in xs), swap=swap, geo=geo, last=last)
+        for i, g in zip(outs, got):
+            flat[i] = g.view(np.int32)
+    return flat
+
+
+def _fused_plain_flat(groups):
+    torch_groups = []
+    for kind, xs, last, ns in groups:
+        emit = "last" if last else "scan"
+        ts = tuple(_t(x) for x in xs)
+        if kind == "affine":
+            torch_groups.append(scan.affine_group(ts[0], ts[1:], emit=emit))
+        elif kind == "add":
+            torch_groups.append(scan.add_group(ts, emit=emit))
+        else:
+            torch_groups.append(scan.dfa_group(ts[0], ns, emit=emit))
+    return [x.numpy() for g in scan.fused_scan_plain(torch_groups) for x in g]
+
+
+def _fused_edge_groups(rng, shape, dfa_states):
+    """Affine k = 1 and 5 (two units), add scan and last, dfa groups with
+    stray nibbles at ``dfa_states``, scan and last."""
+    r = [_full_range(rng, shape) for _ in range(7)]
+    groups = [("affine", (r[0], r[1]), False, 0),
+              ("affine", tuple(r[1:7]), True, 0),
+              ("add", (r[2], r[3]), False, 0),
+              ("add", (r[4],), True, 0)]
+    for i, ns in enumerate(dfa_states):
+        groups.append(("dfa", (_maps_with_stray_nibbles(rng, shape, ns),), i % 2 == 1, ns))
+    return groups
+
+
+#: Widths where a unit's segment count (or the thread count's cap) changes,
+#: and one either side: four-lane units cover 1024 lanes a segment at 256
+#: threads, sixteen-lane ones 4096.
+FUSED_EDGE_WIDTHS = [0, 1, 2, 127, 128, 129, 1023, 1024, 1025, 2049, 4095, 4096, 4097, 8193]
+
+
+def test_fused_geometry_at_its_edges():
+    g = scan.fused_geometry
+    assert [g(n) for n in (0, 1, 128, 129, 512, 1024, 1025, 2048, 65536)] == [
+        32, 32, 32, 64, 128, 256, 256, 256, 256]
+    for n in FUSED_EDGE_WIDTHS + [65536, 70000]:
+        t = g(n)
+        assert 32 <= t <= scan.FUSED_MAX_THREADS and t % 32 == 0
+
+
+@pytest.mark.parametrize("width", FUSED_EDGE_WIDTHS)
+def test_fused_model_matches_plain_at_geometry_edges(width):
+    """The modelled kernel equals ``fused_scan_plain`` at every edge of
+    ``fused_geometry``, in both emit modes (at one lane the plain version
+    returns the lane as it is; at zero a carry is the identity)."""
+    rng = np.random.default_rng(500 + width)
+    states = range(1, 9) if width in (0, 1, 129, 4097) else (4, 5, 8)
+    groups = _fused_edge_groups(rng, (2, width), states)
+    got, want = _model_fused(groups), _fused_plain_flat(groups)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("swap,width", [("lanes", 512), ("warps", 2048), ("carry", 8193)])
+def test_fused_model_fails_with_a_swapped_fold(swap, width):
+    """Each fold of the unit's walk is order-sensitive for the affine and
+    DFA units: with the later operand on the left the model no longer
+    equals the plain version, in either emit mode.  (A long DFA
+    composition forgets its prefix, so eight rows make a differing lane
+    all but certain.)"""
+    rng = np.random.default_rng(width + 1)
+    shape = (8, width)
+    m, a = _full_range(rng, shape), _full_range(rng, shape)
+    f = _maps_with_stray_nibbles(rng, shape, 5)
+    for last in (False, True):
+        groups = [("affine", (m, a), last, 0), ("dfa", (f,), last, 5)]
+        got, want = _model_fused(groups, swap=swap), _fused_plain_flat(groups)
+        for g, w in zip(got, want):
+            assert not np.array_equal(g, w)

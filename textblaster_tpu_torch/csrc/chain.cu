@@ -12,7 +12,9 @@
 //
 //   * affine (`_affine_op`, m + 1..4 accumulators; the accumulators are
 //     emitted), add (`_add_op`, independent sums), dfa (`_dfa_op`, <= 8
-//     states): the ops of scan_ops.cuh;
+//     states): scan_ops.cuh's Affine<K>, Add<M> and Dfa<NS> (a group's
+//     n_states picks the instantiation; the DFA combine is __byte_perm
+//     lookups);
 //   * segmax (`_segmax_op`): a segmented running max over (value, reset),
 //     a SIGNED max restarted where the later element resets, identity
 //     (INT32_MIN, 0); the value stream is emitted;
@@ -110,7 +112,6 @@ constexpr int MAX_OPS = 5;
 constexpr int MAX_THREADS = 1024;    // threads of a CTA (one row's chunk)
 constexpr int MAX_CLUSTER = 8;       // the portable cluster size
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a CTA may have
-constexpr unsigned FULL = 0xffffffffu;
 
 enum Kind { KIND_AFFINE = 0, KIND_ADD = 1, KIND_DFA = 2, KIND_SEGMAX = 3, KIND_COPY = 4 };
 enum Emit { EMIT_SCAN = 0, EMIT_LAST = 1, EMIT_NONE = 2 };
@@ -155,7 +156,11 @@ struct ChainParams {
 };
 static_assert(sizeof(ChainParams) <= 4096, "the plan must fit a 4 KB parameter block");
 
-// Words of a chunk row with scan_ops.cuh's skew(): one pad word every 32.
+// A staged chunk row holds one padding word every 32, so that a thread's
+// consecutive reads (stride `items`) fall in different banks.
+__device__ __forceinline__ int skew(int i) { return i + (i >> 5); }
+
+// Words of a skewed chunk row.
 __host__ __device__ inline int skew_len(int chunk) { return chunk + chunk / 32 + 1; }
 
 // Words of a CTA's shared memory: the staged operands, the keep rows, the
@@ -178,28 +183,6 @@ struct SegmaxOp {
     const int32_t av = (int32_t)x.v[0], bv = (int32_t)y.v[0];
     const uint32_t v = y.v[1] != 0u ? y.v[0] : (uint32_t)(av > bv ? av : bv);
     return State{{v, x.v[1] | y.v[1]}};
-  }
-};
-
-// `_add_op` over M independent sums.
-template <int M>
-struct AddNOp {
-  static constexpr int N = M;
-  static constexpr int FIRST_OUT = 0;
-  struct State {
-    uint32_t v[M];
-  };
-  __device__ __forceinline__ State identity() const {
-    State s;
-#pragma unroll
-    for (int k = 0; k < M; ++k) s.v[k] = 0u;
-    return s;
-  }
-  __device__ __forceinline__ State combine(const State& x, const State& y) const {
-    State s;
-#pragma unroll
-    for (int k = 0; k < M; ++k) s.v[k] = x.v[k] + y.v[k];
-    return s;
   }
 };
 
@@ -517,14 +500,6 @@ __device__ __forceinline__ void write_state(uint32_t* a, const typename Op::Stat
   for (int k = 0; k < Op::N; ++k) a[k] = s.v[k];
 }
 
-template <class Op>
-__device__ __forceinline__ typename Op::State shfl_idx(const typename Op::State& s, int src) {
-  typename Op::State r;
-#pragma unroll
-  for (int k = 0; k < Op::N; ++k) r.v[k] = __shfl_sync(FULL, s.v[k], src);
-  return r;
-}
-
 // Scans the staged operands of one group over the row, in place in walk
 // order, from the chunk's carry; with `last` only the walk's total is
 // written (slots of `g`, [rows, 1]).  `parity` selects the buffers that the
@@ -628,23 +603,32 @@ __device__ __forceinline__ void scan_group(const ChainParams& p, const Group& g,
   switch (g.kind) {
     case KIND_AFFINE:
       switch (g.n_ops) {
-        case 2: scan_chunk(p, AffineOp<1>{}, g, tm, reverse, parity); break;
-        case 3: scan_chunk(p, AffineOp<2>{}, g, tm, reverse, parity); break;
-        case 4: scan_chunk(p, AffineOp<3>{}, g, tm, reverse, parity); break;
-        default: scan_chunk(p, AffineOp<4>{}, g, tm, reverse, parity); break;
+        case 2: scan_chunk(p, Affine<1>{}, g, tm, reverse, parity); break;
+        case 3: scan_chunk(p, Affine<2>{}, g, tm, reverse, parity); break;
+        case 4: scan_chunk(p, Affine<3>{}, g, tm, reverse, parity); break;
+        default: scan_chunk(p, Affine<4>{}, g, tm, reverse, parity); break;
       }
       break;
     case KIND_ADD:
       switch (g.n_ops) {
-        case 1: scan_chunk(p, AddNOp<1>{}, g, tm, reverse, parity); break;
-        case 2: scan_chunk(p, AddNOp<2>{}, g, tm, reverse, parity); break;
-        case 3: scan_chunk(p, AddNOp<3>{}, g, tm, reverse, parity); break;
-        case 4: scan_chunk(p, AddNOp<4>{}, g, tm, reverse, parity); break;
-        default: scan_chunk(p, AddNOp<5>{}, g, tm, reverse, parity); break;
+        case 1: scan_chunk(p, Add<1>{}, g, tm, reverse, parity); break;
+        case 2: scan_chunk(p, Add<2>{}, g, tm, reverse, parity); break;
+        case 3: scan_chunk(p, Add<3>{}, g, tm, reverse, parity); break;
+        case 4: scan_chunk(p, Add<4>{}, g, tm, reverse, parity); break;
+        default: scan_chunk(p, Add<5>{}, g, tm, reverse, parity); break;
       }
       break;
     case KIND_DFA:
-      scan_chunk(p, DfaOp{g.n_states}, g, tm, reverse, parity);
+      switch (g.n_states) {
+        case 1: scan_chunk(p, Dfa<1>{}, g, tm, reverse, parity); break;
+        case 2: scan_chunk(p, Dfa<2>{}, g, tm, reverse, parity); break;
+        case 3: scan_chunk(p, Dfa<3>{}, g, tm, reverse, parity); break;
+        case 4: scan_chunk(p, Dfa<4>{}, g, tm, reverse, parity); break;
+        case 5: scan_chunk(p, Dfa<5>{}, g, tm, reverse, parity); break;
+        case 6: scan_chunk(p, Dfa<6>{}, g, tm, reverse, parity); break;
+        case 7: scan_chunk(p, Dfa<7>{}, g, tm, reverse, parity); break;
+        default: scan_chunk(p, Dfa<8>{}, g, tm, reverse, parity); break;
+      }
       break;
     default:
       scan_chunk(p, SegmaxOp{}, g, tm, reverse, parity);

@@ -6,33 +6,38 @@
 // scan groups over every row:
 //
 //   * affine (`_affine_op`): the shared-multiplier affine map h -> m*h + a
-//     over (m, a1..ak), composed earlier-then-later as (mx*my, ay + my*ax);
-//     only the accumulators are written out.  Accumulators are scanned in
-//     units of up to 4 beside the multiplier (a unit re-reads m).
-//   * add (`_add_op`): n independent running sums, one unit per stream.
+//     over (m, a1..ak); only the accumulators are written out;
+//   * add (`_add_op`): n independent running sums;
 //   * dfa (`_dfa_op`): composition of nibble-packed transition maps with
-//     n_states <= 8, (b . a)(s) = b[a[s]], using logical shifts.
+//     1..8 states.
 //
 // Each group emits its scanned streams (emit "scan", [rows, len]) or only
-// its final carry (emit "last", [rows, 1]).  The ops and the tile constants
-// are in scan_ops.cuh (uint32 arithmetic, earlier operand on the left).
-//
-// Design: the tile scan of scan_ops.cuh (its ops shared with chain.cu).
-// One CTA per row; for each group in order, the CTA walks the
-// row in tiles of SCAN_TILE elements with a carried prefix.  A tile is
-// staged through shared memory with coalesced loads, each thread composes
-// SCAN_ITEMS consecutive elements, a __shfl_up_sync warp scan combines the
-// thread aggregates and the warp totals are combined through shared memory.
-// An emit-"last" unit skips the re-walk and the stores and writes only its
-// carry.  The ragged edge holds the op's identity, so any [rows, len] shape
-// is taken.  The group list travels as a by-value kernel parameter block
-// (no pointer table copied per call).
+// its final carry (emit "last", [rows, 1]).
 //
 // Bound: memory.  The launch moves at least
 //   4*rows*len*(sum of inputs + sum of scanned outputs) + 4*rows*(sum of last outputs)
-// bytes.  Known weakness: 64 rows are 64 CTAs on 132 SMs,
-// and the groups of a row run one after another; splitting rows across
-// CTAs and staging tiles with cp.async is later work.
+// bytes: 31.5 MB for fineweb_stats' list at [64, 8192], 9.4 us at 3.35 TB/s.
+//
+// Design.  The groups are independent, so the entry splits them into scan
+// units once per call: an affine group into units of the multiplier and up
+// to four accumulators (each unit re-reads the multiplier), an add group
+// into one unit per stream, a dfa group into one unit.  The grid is
+// (rows, units): one CTA per (row, unit), in no order (fineweb_stats' list
+// at 64 rows is 320 CTAs on 132 SMs).  A CTA runs scan_ops.cuh's
+// register-held row scan (scan_row, shared with scan.cu) for its unit's op,
+// picked by one switch: Affine<1..4>, Add<1> or Dfa<1..8>, with no cluster,
+// walking ceil(len / (threads * ITEMS)) segments with a carried prefix
+// (ITEMS: 4 lanes a thread for affine and add, 16 for dfa).  `threads` is
+// ops/scan.py's fused_geometry(len), one number per launch, re-checked
+// here.  An emit-"last" unit skips the re-walk and the stores and writes
+// only the row's total.  16-byte loads and stores where the unit's streams
+// are 16-byte aligned and len % 4 == 0, scalar otherwise; lanes past the
+// row's end hold the identity, so any [rows, len] shape is taken (an empty
+// row's carry is the identity; a one-lane row is returned as it is, as the
+// plain schedule does).  The units travel in a by-value
+// __grid_constant__ parameter block, under 1.5 KB.  The widest op,
+// Affine<4> (five words on four lanes, prefetched), sets the kernel's one
+// register count: 111, no spills, so two CTAs of 256 threads fit an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,118 +46,148 @@
 
 namespace {
 
-using namespace tb;
+using tb::Add;
+using tb::Affine;
+using tb::Dfa;
+using tb::RowPtrs;
 
 constexpr int MAX_GROUPS = 8;
 constexpr int MAX_STREAMS = 16;
-constexpr int MAX_UNIT = 5;  // streams in one scan unit: m + 4 accumulators
-constexpr int MAX_ACCS = MAX_UNIT - 1;
+constexpr int MAX_UNITS = MAX_STREAMS;  // every unit reads a stream of its own
+constexpr int MAX_ACCS = 4;             // accumulators in one affine unit
+constexpr int MAX_THREADS = 512;
 
 enum Kind { KIND_AFFINE = 0, KIND_ADD = 1, KIND_DFA = 2 };
+// A unit's op: Affine<1..4> as 1..4, Add<1> as 5, Dfa<1..8> as 8 + states.
+enum OpCode { OP_ADD = 5, OP_DFA = 8 };
 
-struct FusedParams {
-  int n_groups;
-  int kind[MAX_GROUPS];
-  int n_in[MAX_GROUPS];
-  int emit_last[MAX_GROUPS];
-  int n_states[MAX_GROUPS];
-  const int32_t* in[MAX_STREAMS];
-  int32_t* out[MAX_STREAMS];
+struct Unit {
+  int op;
+  int last;  // emit "last": the row's total to [rows, 1]
+  int vec;   // 16-byte accesses
+  RowPtrs p;
 };
 
-using Smem = TileSmem<MAX_UNIT>;
+struct FusedParams {
+  Unit unit[MAX_UNITS];
+};
 
-// --- kernel ---------------------------------------------------------------
+// Words of the row scan's shared memory for the widest op (Affine<4>, five
+// words): the warp totals and the chunk's aggregate, double-buffered.
+constexpr int SMEM_WORDS = 2 * 32 * (MAX_ACCS + 1) + 2 * (MAX_ACCS + 1);
 
-__global__ void __launch_bounds__(SCAN_THREADS) fused_scan_kernel(FusedParams p, int len) {
-  __shared__ Smem sm;
-  const size_t row = blockIdx.x;
-  int in_i = 0, out_i = 0;
-  for (int g = 0; g < p.n_groups; ++g) {
-    const int n = p.n_in[g];
-    const bool last = p.emit_last[g] != 0;
-    const int32_t* ins[MAX_UNIT] = {};
-    int32_t* outs[MAX_UNIT] = {};
-    if (p.kind[g] == KIND_AFFINE) {
-      ins[0] = p.in[in_i];
-      for (int a = 1; a < n; a += MAX_ACCS) {
-        const int k = n - a < MAX_ACCS ? n - a : MAX_ACCS;
-        for (int j = 0; j < k; ++j) {
-          ins[1 + j] = p.in[in_i + a + j];
-          outs[j] = p.out[out_i + a - 1 + j];
-        }
-        switch (k) {
-          case 1: scan_row(AffineOp<1>{}, sm, ins, outs, last, row, len); break;
-          case 2: scan_row(AffineOp<2>{}, sm, ins, outs, last, row, len); break;
-          case 3: scan_row(AffineOp<3>{}, sm, ins, outs, last, row, len); break;
-          default: scan_row(AffineOp<4>{}, sm, ins, outs, last, row, len); break;
-        }
-      }
-      out_i += n - 1;
-    } else if (p.kind[g] == KIND_ADD) {
-      for (int s = 0; s < n; ++s) {
-        ins[0] = p.in[in_i + s];
-        outs[0] = p.out[out_i + s];
-        scan_row(AddOp{}, sm, ins, outs, last, row, len);
-      }
-      out_i += n;
-    } else {
-      ins[0] = p.in[in_i];
-      outs[0] = p.out[out_i];
-      scan_row(DfaOp{p.n_states[g]}, sm, ins, outs, last, row, len);
-      out_i += 1;
-    }
-    in_i += n;
+template <class Op>
+__device__ __forceinline__ void run_unit(const Unit& u, uint32_t* smem, int len) {
+  using WarpTot = uint32_t[2][32][Op::N];
+  using ChunkTot = uint32_t[2][Op::N];
+  const long long chunk = (long long)blockDim.x * Op::ITEMS;
+  const RowPtrs p = u.p;
+  tb::scan_row<Op>(p, *reinterpret_cast<WarpTot*>(smem),
+                   *reinterpret_cast<ChunkTot*>(smem + 2 * 32 * Op::N), blockIdx.x, len, 1,
+                   (int)((len + chunk - 1) / chunk), u.vec != 0, u.last != 0);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+fused_scan_kernel(const __grid_constant__ FusedParams p, int len) {
+  __shared__ uint32_t smem[SMEM_WORDS];
+  const Unit& u = p.unit[blockIdx.y];
+  switch (u.op) {
+    case 1: run_unit<Affine<1>>(u, smem, len); break;
+    case 2: run_unit<Affine<2>>(u, smem, len); break;
+    case 3: run_unit<Affine<3>>(u, smem, len); break;
+    case 4: run_unit<Affine<4>>(u, smem, len); break;
+    case OP_ADD: run_unit<Add<1>>(u, smem, len); break;
+    case OP_DFA + 1: run_unit<Dfa<1>>(u, smem, len); break;
+    case OP_DFA + 2: run_unit<Dfa<2>>(u, smem, len); break;
+    case OP_DFA + 3: run_unit<Dfa<3>>(u, smem, len); break;
+    case OP_DFA + 4: run_unit<Dfa<4>>(u, smem, len); break;
+    case OP_DFA + 5: run_unit<Dfa<5>>(u, smem, len); break;
+    case OP_DFA + 6: run_unit<Dfa<6>>(u, smem, len); break;
+    case OP_DFA + 7: run_unit<Dfa<7>>(u, smem, len); break;
+    default: run_unit<Dfa<8>>(u, smem, len); break;
   }
+}
+
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
+
+// Appends one unit of `n_in` input and `n_out` output pointers.
+bool add_unit(FusedParams& p, int& n_units, int op, bool last, int len,
+              const int32_t* const* ins, int n_in, int32_t* const* outs, int n_out) {
+  if (n_units == MAX_UNITS) return false;
+  Unit& u = p.unit[n_units++];
+  u.op = op;
+  u.last = last;
+  // An empty row's streams may be null (an empty tensor has no storage);
+  // only a carry is written then.
+  bool vec = len % 4 == 0;
+  for (int k = 0; k < n_in; ++k) {
+    if (ins[k] == nullptr && len > 0) return false;
+    u.p.in[k] = ins[k];
+    vec = vec && aligned16(ins[k]);
+  }
+  for (int k = 0; k < n_out; ++k) {
+    if (outs[k] == nullptr && (len > 0 || last)) return false;
+    u.p.out[k] = outs[k];
+    vec = vec && (last || aligned16(outs[k]));
+  }
+  u.vec = vec;
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Evaluates n_groups independent scan groups in one launch.  Per group:
-// kinds[g] (0 affine, 1 add, 2 dfa), n_in[g] input streams (affine: the
-// multiplier then the accumulators), emit_last[g], n_states[g] (dfa only).
-// ins: the n_ins input pointers in group order; outs: the n_outs output
-// pointers in group order ([rows, len] or, for emit_last, [rows, 1]).
-// Host arrays; the pointers are copied into the launch's parameter block.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a list the
-// kernel does not take.
-int tb_fused_scan(int n_groups, const int* kinds, const int* n_in, const int* emit_last,
-                  const int* n_states, const int32_t* const* ins, int n_ins,
-                  int32_t* const* outs, int n_outs, int rows, int len,
-                  cudaStream_t stream) {
-  if (n_groups < 1 || n_groups > MAX_GROUPS || n_ins > MAX_STREAMS ||
-      n_outs > MAX_STREAMS || rows < 0 || len < 0)
-    return (int)cudaErrorInvalidValue;
+// Evaluates n_groups independent scan groups in one launch.  groups: per
+// group four ints, kind (0 affine, 1 add, 2 dfa), its input count (affine:
+// the multiplier then the accumulators), emit_last and n_states (dfa).
+// ptrs: the n_ins input pointers in group order, then the n_outs output
+// pointers in group order ([rows, len], or [rows, 1] for emit_last).
+// threads: ops/scan.py's fused_geometry(len).  Host arrays; the units are
+// written into the launch's parameter block.  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a list or geometry the kernel does not take.
+int tb_fused_scan(const int* groups, int n_groups, void* const* ptrs, int n_ins, int n_outs,
+                  int rows, int len, int threads, cudaStream_t stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (n_groups < 1 || n_groups > MAX_GROUPS || n_ins < 1 || n_ins > MAX_STREAMS ||
+      n_outs < 1 || n_outs > MAX_STREAMS || rows < 0 || len < 0 || threads < 32 ||
+      threads > MAX_THREADS || threads % 32 != 0)
+    return bad;
+  const int32_t* const* ins = reinterpret_cast<const int32_t* const*>(ptrs);
+  int32_t* const* outs = reinterpret_cast<int32_t* const*>(ptrs + n_ins);
   FusedParams p = {};
-  p.n_groups = n_groups;
-  int want_in = 0, want_out = 0;
+  int n_units = 0, in_i = 0, out_i = 0;
   for (int g = 0; g < n_groups; ++g) {
-    const int kind = kinds[g], n = n_in[g];
+    const int kind = groups[4 * g], n = groups[4 * g + 1], ns = groups[4 * g + 3];
+    const bool last = groups[4 * g + 2] != 0;
+    const int n_out = kind == KIND_AFFINE ? n - 1 : n;
+    if (n < 1 || in_i + n > n_ins || out_i + n_out > n_outs) return bad;
     if (kind == KIND_AFFINE) {
-      if (n < 2) return (int)cudaErrorInvalidValue;
-      want_out += n - 1;
+      if (n < 2) return bad;
+      for (int a = 1; a < n; a += MAX_ACCS) {
+        const int k = n - a < MAX_ACCS ? n - a : MAX_ACCS;
+        const int32_t* unit_in[MAX_ACCS + 1] = {ins[in_i]};
+        for (int j = 0; j < k; ++j) unit_in[1 + j] = ins[in_i + a + j];
+        if (!add_unit(p, n_units, k, last, len, unit_in, k + 1, outs + out_i + a - 1, k))
+          return bad;
+      }
     } else if (kind == KIND_ADD) {
-      if (n < 1) return (int)cudaErrorInvalidValue;
-      want_out += n;
+      for (int s = 0; s < n; ++s)
+        if (!add_unit(p, n_units, OP_ADD, last, len, ins + in_i + s, 1, outs + out_i + s, 1))
+          return bad;
     } else if (kind == KIND_DFA) {
-      if (n != 1 || n_states[g] < 1 || n_states[g] > 8) return (int)cudaErrorInvalidValue;
-      want_out += 1;
+      if (n != 1 || ns < 1 || ns > 8 ||
+          !add_unit(p, n_units, OP_DFA + ns, last, len, ins + in_i, 1, outs + out_i, 1))
+        return bad;
     } else {
-      return (int)cudaErrorInvalidValue;
+      return bad;
     }
-    want_in += n;
-    p.kind[g] = kind;
-    p.n_in[g] = n;
-    p.emit_last[g] = emit_last[g];
-    p.n_states[g] = n_states[g];
+    in_i += n;
+    out_i += n_out;
   }
-  if (want_in != n_ins || want_out != n_outs) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_ins; ++i) p.in[i] = ins[i];
-  for (int i = 0; i < n_outs; ++i) p.out[i] = outs[i];
+  if (in_i != n_ins || out_i != n_outs) return bad;
   if (rows == 0) return (int)cudaSuccess;
-  fused_scan_kernel<<<rows, SCAN_THREADS, 0, stream>>>(p, len);
+  fused_scan_kernel<<<dim3((unsigned)rows, (unsigned)n_units), threads, 0, stream>>>(p, len);
   return (int)cudaGetLastError();
 }
 

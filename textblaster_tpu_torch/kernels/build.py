@@ -133,7 +133,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.tb_sort3.restype = i
     elif name == "fused":
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-        lib.tb_fused_scan.argtypes = [i, ip, ip, ip, ip, pp, i, pp, i, i, i, p]
+        lib.tb_fused_scan.argtypes = [ip, i, pp, i, i, i, i, i, p]
         lib.tb_fused_scan.restype = i
     elif name == "chain":
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)

@@ -68,6 +68,7 @@ __all__ = [
     "dfa_group",
     "dfa_ident",
     "fused_enabled",
+    "fused_geometry",
     "fused_scan",
     "fused_scan_ok",
     "fused_scan_plain",
@@ -190,9 +191,9 @@ def _count(kernel: str, rows: int, width: int, *variant: int) -> None:
 
 # --- the per-scan kernels (csrc/scan.cu) ----------------------------------------
 
-#: Lanes a thread holds, by op (``Affine::ITEMS`` and ``Dfa::ITEMS`` in
-#: csrc/scan_ops.cuh).
-SCAN_ITEMS = {"affine": 4, "dfa": 16}
+#: Lanes a thread holds, by op (``Affine::ITEMS``, ``Add::ITEMS`` and
+#: ``Dfa::ITEMS`` in csrc/scan_ops.cuh).
+SCAN_ITEMS = {"affine": 4, "add": 4, "dfa": 16}
 
 
 class ScanGeometry(NamedTuple):
@@ -365,16 +366,6 @@ def _group_spec(g: dict):
 _KINDS = {"affine": 0, "add": 1, "dfa": 2}
 
 
-def _regroup(groups: Sequence[dict], flat: Sequence[torch.Tensor]):
-    """Split a flat emitted-stream tuple back into per-group tuples."""
-    out, i = [], 0
-    for g in groups:
-        k = len(_group_spec(g)[3])
-        out.append(tuple(flat[i : i + k]))
-        i += k
-    return out
-
-
 def fused_enabled() -> bool:
     """``TEXTBLAST_FUSED=off`` (or ``0``/``false``) selects the staged
     schedule; re-read per call so tests and benches can toggle it."""
@@ -417,6 +408,33 @@ def fused_scan_plain(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
     return out
 
 
+#: Largest CTA ``csrc/fused.cu`` takes (its ``__launch_bounds__``).
+FUSED_MAX_THREADS = 512
+
+
+def fused_geometry(length: int) -> int:
+    """Threads per CTA of ``csrc/fused.cu`` for rows of ``length`` lanes,
+    one number for every scan unit of the launch: enough threads of four
+    lanes to cover the row in one segment, at most 256 (a unit walks
+    ``ceil(length / (threads * SCAN_ITEMS[op]))`` segments; a DFA unit's
+    threads hold 16 lanes).  On the card (``kernel_ab.py --sweep``;
+    PERF.md), 256 threads beat 512 at 2048 and 8192 lanes on the main
+    path's lists, and at 512 lanes 128 beat 256 and 512."""
+    return min(256, max(1, -(-length // (32 * SCAN_ITEMS["add"]))) * 32)
+
+
+#: The library of csrc/fused.cu, loaded on first use.
+_FUSED_LIB: List[ctypes.CDLL] = []
+
+
+def _fused_lib() -> ctypes.CDLL:
+    if not _FUSED_LIB:
+        from ..kernels.build import load
+
+        _FUSED_LIB.append(load("fused"))
+    return _FUSED_LIB[0]
+
+
 def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
     """Evaluate independent scan groups in ONE kernel launch; returns one
     tuple of int32 streams per group: ``[B, L]`` scans for
@@ -424,7 +442,9 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
 
     Every operand is a contiguous int32 ``[B, L]`` tensor on one device;
     at most 8 groups and 16 input and 16 output streams; DFA groups take
-    1..8 states.  Callers gate on :func:`fused_scan_ok` first."""
+    1..8 states.  The kernel runs one CTA per (row, scan unit) with
+    :func:`fused_geometry`'s threads.  Callers gate on
+    :func:`fused_scan_ok` first."""
     groups = list(groups)
     if not groups:
         raise ValueError("fused_scan: no groups")
@@ -449,34 +469,25 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
         if g["kind"] == "dfa" and not 1 <= g["n_states"] <= 8:
             raise ValueError("fused_scan: the kernel takes 1..8 DFA states")
     _check("fused_scan", xs)
-    from ..kernels.build import check, load
-
     rows, length = xs[0].shape
-    outs = []
+    res, outs = [], []
     for _, _, _, emit_idx, emit_last in specs:
         shape = (rows, 1) if emit_last else (rows, length)
-        outs.extend(torch.empty(shape, dtype=torch.int32, device=dev) for _ in emit_idx)
+        res.append(tuple(torch.empty(shape, dtype=torch.int32, device=dev) for _ in emit_idx))
+        outs.extend(res[-1])
     if rows == 0:
-        return _regroup(groups, outs)
-
-    def ints(vals):
-        return (ctypes.c_int * len(vals))(*vals)
-
-    lib = load("fused")
-    kinds = ints([_KINDS[g["kind"]] for g in groups])
-    n_in = ints([len(g["xs"]) for g in groups])
-    last = ints([int(s[4]) for s in specs])
-    n_states = ints([g.get("n_states", 0) for g in groups])
-    in_ptrs = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+        return res
+    code = [v for g, s in zip(groups, specs)
+            for v in (_KINDS[g["kind"]], len(g["xs"]), int(s[4]), g.get("n_states", 0))]
+    ptrs = (ctypes.c_void_p * (len(xs) + len(outs)))(*(t.data_ptr() for t in xs + tuple(outs)))
+    lib = _fused_lib()
     with torch.cuda.device(dev):
-        err = lib.tb_fused_scan(
-            len(groups), kinds, n_in, last, n_states,
-            in_ptrs, len(xs), out_ptrs, len(outs), rows, length, _stream(xs[0]),
-        )
-    check(err, "fused_scan")
+        err = lib.tb_fused_scan((ctypes.c_int * len(code))(*code), len(groups), ptrs, len(xs),
+                                len(outs), rows, length, fused_geometry(length), _stream(xs[0]))
+    if err != 0:
+        raise RuntimeError(f"fused_scan: CUDA error {err}")
     _count("fused_scan", rows, length)
-    return _regroup(groups, outs)
+    return res
 
 
 # --- dependency-chained multi-pass scan ----------------------------------------
