@@ -25,7 +25,10 @@ Phases (any failure exits non-zero without the final result line):
    16384 wide), with the JAX package's probe program and with a generic
    full-range program (every group kind, forward and reverse passes, shift
    taps with nonzero fills, every emit mode) at every width the chain takes;
-   ``sort3`` with ties and the int32 extremes.  Then CUDA-event timings
+   ``sort3`` with ties and the int32 extremes at every edge of its
+   layouts (1 .. 40000 keys, the last on the shared-memory network, on 1,
+   7, 64 and 65 rows, aligned and on offset views), printing the layout
+   each width takes.  Then CUDA-event timings
    beside the bound (the larger of the bytes at 3.35 TB/s and the integer
    operations at 67 T/s): the kernel and, where one exists, the single
    PyTorch call computing the same function, each replayed from a CUDA
@@ -639,33 +642,49 @@ def kernel_phase(corpus):
                   "sentence_counts"}
     if sites != want_sites:
         fail(f"chain programs built for {sorted(sites)}, expected {sorted(want_sites)}")
-    # sort3: ties and both int32 extremes, 64 rows.
+    # sort3: ties and both int32 extremes, at its timed widths (64 rows) and
+    # at every edge of its layouts on 1, 7, 64 and 65 rows, aligned and on
+    # offset views; 40000 keys take the shared-memory network.
     errs["sort3"] = 0
-    sort3_widths = (256, 512, 2048, 8192, 16384)
+    sort3_widths = (256, 512, 2048, 8192, 16384, 32768)
+    sort3_edges = (1, 3, 100, 1000, 4097, 8192, 16384, 16385, 32767, 32768, 40000)
 
-    def keys3(width):
+    def keys3(width, rows=64, gen=rng):
         ks = []
         for _ in range(3):
-            k = rng.integers(-3, 3, size=(64, width)).astype(np.int32)
-            k[rng.random(k.shape) < 0.05] = 2**31 - 1
-            k[rng.random(k.shape) < 0.05] = -(2**31)
+            k = gen.integers(-3, 3, size=(rows, width)).astype(np.int32)
+            k[gen.random(k.shape) < 0.05] = 2**31 - 1
+            k[gen.random(k.shape) < 0.05] = -(2**31)
             ks.append(torch.from_numpy(k).to(dev))
         return ks
 
-    for width in sort3_widths:
-        ks = keys3(width)
+    sort3_shapes = [(64, w, "aligned") for w in sort3_widths]
+    sort3_shapes += [(r, w, v) for w in sort3_edges for r in (1, 7, 64, 65)
+                     for v in ("aligned", "offset")]
+    s3rng = np.random.default_rng(SEED + 3)
+    for rows, width, view_name in sort3_shapes:
+        ks = keys3(width, rows, s3rng)
+        if view_name == "offset":
+            ks = [offset_view(k) for k in ks]
         got = sort.sort3(*ks)
         torch.cuda.synchronize()
         want = sort.sort3_plain(*ks)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"sort3 differs from its plain version at [64, {width}]")
+            fail(f"sort3 differs from its plain version at {[rows, width]} ({view_name})")
         errs["sort3"] = max(errs["sort3"], max_err(got, want))
+    for width in sorted(set(sort3_widths + sort3_edges)):
+        g = sort.sort_geometry(width, 3)
+        print(f"  sort3 layout at {width} keys: " + (
+            "shared-memory network (scratch)" if g is None else
+            f"{'one warp a row' if g.rows_per_cta > 1 else 'CTA' if g.ctas == 1 else 'cluster'}"
+            f" (mp {g.mp}, E {g.keys}, {g.threads} threads x {g.ctas} CTAs, "
+            f"{g.rows_per_cta} rows a CTA)"), flush=True)
     print(f"kernels exact: affine_scan (k = 1, 2) and dfa_scan (n_states 1..8) at "
           f"{scan_shapes}, aligned and offset, "
           f"sort2 at {sort_shapes}, fused_scan at {fused_shapes} and its edges {fused_edges}, "
           f"chain_scan at "
           f"{sorted(chain_widths)} (sites {sorted(sites)} on batches {text_shapes}; probe and "
-          f"generic at {generic_shapes}), sort3 at 64 x {sort3_widths}", flush=True)
+          f"generic at {generic_shapes}), sort3 at {sort3_shapes}", flush=True)
 
     # Timings: per shape (written to the JSON file), and the representative
     # main-path call per kernel (the kernels line).

@@ -4,7 +4,7 @@ in one process.
 
     git archive <commit> textblaster_tpu_torch/csrc | tar -x -C build/kernel_ab/parent
     python3 kernel_ab.py --parent build/kernel_ab/parent/textblaster_tpu_torch/csrc \
-        [--kernels affine_scan,dfa_scan,sort2,chain_scan,fused_scan] [--sweep]
+        [--kernels affine_scan,dfa_scan,sort2,sort3,chain_scan,fused_scan] [--sweep]
 
 The earlier ``scan.cu``, ``sort.cu``, ``chain.cu`` and ``fused.cu`` (with
 their ``scan_ops.cuh``), those the chosen kernels need, and this tree's are
@@ -16,10 +16,13 @@ interfaces: the per-scan kernels, ``sort2`` and ``chain_scan`` are called
 through this tree's wrappers (unchanged since then), pointed at the
 earlier or at this tree's library before every call of either;
 ``fused_scan`` through the earlier wrapper's steps (``load``, five ctypes
-arrays, the earlier entry).  At every main-path shape -- ``affine_scan`` (k = 1 and 2) and
+arrays, the earlier entry); ``sort2`` and ``sort3`` through this tree's
+wrappers where the earlier ``sort.cu`` takes the layout from the caller,
+else (69747ba and before) through the earlier wrappers' steps.  At every main-path shape -- ``affine_scan`` (k = 1 and 2) and
 ``dfa_scan`` (4 and 5 states) on 64 rows of 512 .. 65536 lanes, ``sort2``
 on 256 rows of 256 .. 16384 keys and 320 rows of 16384 (and 64 rows of
-32768 and 65536), ``chain_scan`` with every call site's program, made by
+32768 and 65536), ``sort3`` on 64 rows of 256 .. 32768 keys (ties and
+both int32 extremes), ``chain_scan`` with every call site's program, made by
 the site's own code (``chip_smoke.site_programs``) on 64-row batches of
 each bucket, ``fused_scan`` with every call site's group list
 (``chip_smoke.fused_site_lists``) on 64 rows of 512, 2048 and 8192 lanes
@@ -27,10 +30,15 @@ each bucket, ``fused_scan`` with every call site's group list
 in turns, earlier, new, new, earlier: the kernel replayed from a CUDA
 graph (device time) and the wrapper's eager call (host cost included), as
 ``chip_smoke.py`` times them; for ``sort2`` also ``torch.sort`` of the
-packed int64.  ``--sweep`` also times this tree's scan kernels under other
-geometries than ``scan_geometry``'s, and ``fused_scan`` under other thread
-counts than ``fused_geometry``'s, at the same shapes (each held to the
-plain version first).  The table goes to standard output and to
+packed int64.  The sorts' wrapper is also timed in its two forms of the
+device guard (always entered, or only off the current device) in turns.
+``--sweep`` also times this tree's scan kernels under other geometries
+than ``scan_geometry``'s, ``fused_scan`` under other thread counts than
+``fused_geometry``'s, and ``sort3`` in every layout of a build of this
+tree's ``sort.cu`` with ``-DTB_SORT_SWEEP`` (one warp a row up to 1024
+keys; CTAs of 8 and 16 keys a thread in clusters of 1, 2 and 4) at
+1024 .. 32768 keys, at the same shapes (each held to the plain version
+first).  The table goes to standard output and to
 ``ab.json`` in ``$AB_OUT`` (default ``build/kernel_ab``).  Needs a GPU and
 ``nvcc``.
 """
@@ -52,13 +60,33 @@ import chip_smoke as cs  # noqa: E402  (the corpus, site programs and timers)
 
 
 def ptxas_lines(log: str):
-    """The register, stack and spill lines of a ``ptxas -v`` report."""
-    return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    """Each kernel of a ``ptxas -v`` report, demangled where ``c++filt``
+    runs, with its registers, stack and spills."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill" in ln or "registers" in ln:
+            out.append(ln.split(":", 1)[-1].strip() if "registers" in ln else ln.strip())
+            if "registers" in ln and name:
+                out[-1] = f"{name}: {out[-2] if len(out) > 1 else ''}; {out[-1]}"
+                del out[-2]
+                name = None
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True, text=True,
+                             timeout=60)
+        if res.returncode == 0:
+            out = [ln.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+                   for ln in res.stdout.splitlines()]
+    except OSError:
+        pass
+    return out
 
 
-def build_libs(src_dir: str, out_dir: str, names, side: str):
+def build_libs(src_dir: str, out_dir: str, names, side: str, flags=()):
     """``side``'s libraries ``names`` from the sources in ``src_dir``,
-    compiled concurrently; prints each one's ``ptxas -v`` lines."""
+    compiled concurrently (with ``flags`` beside the build's own); prints
+    each one's ``ptxas -v`` lines."""
     from textblaster_tpu_torch.kernels import build as kb
 
     os.makedirs(out_dir, exist_ok=True)
@@ -67,22 +95,95 @@ def build_libs(src_dir: str, out_dir: str, names, side: str):
     for name in names:
         out = os.path.join(out_dir, f"lib{side}_{name}.so")
         procs[name] = (out, subprocess.Popen(
-            [nvcc, *kb._FLAGS, "-o", out, os.path.join(src_dir, f"{name}.cu")],
+            [nvcc, *kb._FLAGS, *flags, "-o", out, os.path.join(src_dir, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
-        print(f"  ptxas {side} {name}: " + " | ".join(ptxas_lines(log)), flush=True)
+        print(f"  ptxas {side} {name}:\n    " + "\n    ".join(ptxas_lines(log)), flush=True)
         if proc.returncode != 0:
             cs.fail(f"nvcc failed for the {side} {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(out)
         kb._declare(name, libs[name])
+    p, i = ctypes.c_void_p, ctypes.c_int
     if "fused" in libs and side == "old":  # the earlier fused entry
-        p, i = ctypes.c_void_p, ctypes.c_int
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
         libs["fused"].tb_fused_scan.argtypes = [i, ip, ip, ip, ip, pp, i, pp, i, i, i, p]
         libs["fused"].tb_fused_scan.restype = i
+    if "sort" in libs and side == "old" and not takes_layout(src_dir):
+        libs["sort"].tb_sort2.argtypes = [p] * 5 + [i] * 3 + [p]  # the earlier entries
+        libs["sort"].tb_sort3.argtypes = [p] * 7 + [i] * 3 + [p]
     return libs
+
+
+def takes_layout(src_dir: str) -> bool:
+    """Whether ``src_dir``'s ``sort.cu`` takes the register network's layout
+    from the caller (this tree's entries), not the earlier entries."""
+    with open(os.path.join(src_dir, "sort.cu")) as f:
+        return "int rows_per_cta" in f.read()
+
+
+def old_sort(lib, ks):
+    """The earlier (69747ba) ``sort2`` / ``sort3`` wrapper's steps on the
+    earlier library: a packed scratch buffer above 16384 keys (two keys) or
+    8192 (three), the device guard as each wrapper had it."""
+    import torch
+
+    from textblaster_tpu_torch.kernels.build import check
+
+    k1 = ks[0]
+    rows, m = k1.shape
+    outs = tuple(torch.empty_like(k1) for _ in ks)
+    mp = max(2, 1 << (m - 1).bit_length())
+    two = len(ks) == 2
+    scratch = (torch.empty((rows, mp, len(ks) - 1), dtype=torch.int64, device=k1.device)
+               if mp > (16384 if two else 8192) else None)
+    fn = lib.tb_sort2 if two else lib.tb_sort3
+    args = (*(t.data_ptr() for t in ks + outs), scratch.data_ptr() if scratch is not None
+            else None, rows, m, mp, torch.cuda.current_stream(k1.device).cuda_stream)
+    if two and k1.device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(k1.device):
+            err = fn(*args)
+    check(err, "old sort")
+    return outs
+
+
+def guard_always(device, fn, args):
+    """The other form of ``ops/sort.py``'s ``_on_device``: the device guard
+    entered on every call."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+def sort3_layouts(width):
+    """The sweep build's ``sort3`` layouts (keys, threads, ctas,
+    rows_per_cta) at ``width`` keys: one warp a row up to 1024 keys, CTAs
+    of 8 and 16 keys a thread in clusters of 1, 2 and 4."""
+    out = [(width // 32, 32, 1, 4)] if width <= 1024 else []
+    for keys in (8, 16):
+        for ctas in (1, 2, 4):
+            threads = width // keys // ctas
+            if 32 <= threads <= 8192 // keys:
+                out.append((keys, threads, ctas, 1))
+    return out
+
+
+def sort3_with(lib, ks, layout):
+    """``lib``'s ``sort3`` kernel in the register layout ``layout``."""
+    import torch
+
+    rows, m = ks[0].shape
+    outs = tuple(torch.empty_like(k) for k in ks)
+    mp = max(2, 1 << (m - 1).bit_length())
+    err = lib.tb_sort3(*(t.data_ptr() for t in ks + outs), None, rows, m, mp, *layout,
+                       torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sort3 in layout {layout}: CUDA error {err}")
+    return outs
 
 
 #: Per side ("old", "new"): the libraries of this tree's per-scan, sort
@@ -221,7 +322,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, help="directory of the earlier csrc/ sources")
     ap.add_argument("--docs", type=int, default=4000, help="corpus documents for the batches")
-    ap.add_argument("--kernels", default="affine_scan,dfa_scan,sort2,chain_scan,fused_scan",
+    ap.add_argument("--kernels",
+                    default="affine_scan,dfa_scan,sort2,sort3,chain_scan,fused_scan",
                     help="comma-separated subset")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the scan kernels under other geometries")
@@ -238,13 +340,20 @@ def main() -> int:
     from textblaster_tpu_torch.ops import scan, sort
 
     out_dir = os.environ.get("AB_OUT") or os.path.join(ROOT, "build", "kernel_ab")
-    libs = {"affine_scan": "scan", "dfa_scan": "scan", "sort2": "sort", "chain_scan": "chain",
-            "fused_scan": "fused"}
+    libs = {"affine_scan": "scan", "dfa_scan": "scan", "sort2": "sort", "sort3": "sort",
+            "chain_scan": "chain", "fused_scan": "fused"}
     names = sorted({libs[k] for k in kernels} | {"scan"})
     ab_dir = os.path.join(ROOT, "build", "kernel_ab")
     new = build_libs(os.path.join(ROOT, "textblaster_tpu_torch", "csrc"),
                      os.path.join(ab_dir, "new"), names, "new")
     old = build_libs(os.path.abspath(args.parent), os.path.join(ab_dir, "old"), names, "old")
+    sweep_sort = (build_libs(os.path.join(ROOT, "textblaster_tpu_torch", "csrc"),
+                             os.path.join(ab_dir, "sweep"), ["sort"], "sweep",
+                             ["-DTB_SORT_SWEEP"])["sort"]
+                  if args.sweep and "sort3" in kernels else None)
+    if sweep_sort is not None:
+        sweep_sort.tb_sort3_max_clusters.argtypes = [ctypes.c_int] * 3
+        sweep_sort.tb_sort3_max_clusters.restype = ctypes.c_int
     wrapped = [n for n in names if n != "fused"]
     SIDES["old"] = ({n: old[n] for n in wrapped}, {})
     SIDES["new"] = ({n: new[n] for n in wrapped}, {})
@@ -255,6 +364,7 @@ def main() -> int:
     rows_out = []
 
     def ab(kind, label, shape, bound, old_fn, new_fn, plain, library=None):
+        # old_fn / new_fn: the earlier and this tree's call (or two forms).
         for name, fn in (("old", old_fn), ("new", new_fn)):
             got = fn()
             torch.cuda.synchronize()
@@ -342,6 +452,29 @@ def main() -> int:
 
     sort_shapes = ((256, 256), (256, 512), (256, 2048), (256, 8192), (256, 16384),
                    (320, 16384), (64, 32768), (64, 65536))
+    same_sort = takes_layout(os.path.abspath(args.parent))
+
+    def sort_sides(ks):
+        """The earlier and this tree's sort2 / sort3 calls on ``ks``."""
+        call = lambda: (sort.sort2 if len(ks) == 2 else sort.sort3)(*ks)  # noqa: E731
+        if same_sort:
+            return on("old", call), on("new", call)
+        return lambda: old_sort(old["sort"], ks), on("new", call)
+
+    def guard_forms(ks):
+        """This tree's wrapper with the guard always entered, and as kept."""
+        call = lambda: (sort.sort2 if len(ks) == 2 else sort.sort3)(*ks)  # noqa: E731
+        kept = sort._on_device
+
+        def always():
+            sort._on_device = guard_always
+            try:
+                return on("new", call)()
+            finally:
+                sort._on_device = kept
+
+        return always, on("new", call)
+
     for rows, width in sort_shapes if "sort2" in kernels else ():
         k1 = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(rows, width),
                                            dtype=np.int64).astype(np.int32)).to(dev)
@@ -350,10 +483,33 @@ def main() -> int:
         z = (k1.long() << 32) | k2.long()
         lg = max(1, (width - 1).bit_length())
         exchanges = rows * (1 << lg) // 2 * lg * (lg + 1) // 2
-        call = lambda: sort.sort2(k1, k2)  # noqa: E731
-        ab("sort2", "", (rows, width), cs.bound(16.0 * rows * width, 3.0 * exchanges),
-           on("old", call), on("new", call), sort.sort2_plain(k1, k2),
+        bnd = cs.bound(16.0 * rows * width, 3.0 * exchanges)
+        ab("sort2", "", (rows, width), bnd, *sort_sides((k1, k2)), sort.sort2_plain(k1, k2),
            library=lambda: torch.sort(z, dim=1))
+        if (rows, width) in ((256, 256), (256, 2048)):
+            ab("sort2", "guard always / kept", (rows, width), bnd, *guard_forms((k1, k2)),
+               sort.sort2_plain(k1, k2))
+
+    for width in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768) if "sort3" in kernels else ():
+        ks = []
+        for _ in range(3):
+            k = rng.integers(-3, 3, size=(64, width)).astype(np.int32)
+            k[rng.random(k.shape) < 0.05] = 2**31 - 1
+            k[rng.random(k.shape) < 0.05] = -(2**31)
+            ks.append(torch.from_numpy(k).to(dev))
+        ks = tuple(ks)
+        plain = sort.sort3_plain(*ks)
+        lg = max(1, (width - 1).bit_length())
+        exchanges = 64 * (1 << lg) // 2 * lg * (lg + 1) // 2
+        bnd = cs.bound(24.0 * 64 * width, 5.0 * exchanges)
+        ab("sort3", str(sort.sort_geometry(width, 3)[1:]), (64, width), bnd, *sort_sides(ks),
+           plain)
+        if width in (256, 2048):
+            ab("sort3", "guard always / kept", (64, width), bnd, *guard_forms(ks), plain)
+        for layout in sort3_layouts(width) if sweep_sort is not None else ():
+            held = (sweep_sort.tb_sort3_max_clusters(*layout[:3]) if layout[3] == 1 else None)
+            sweep("sort3", f"({held} clusters at once)", (64, width), list(layout),
+                  lambda: sort3_with(sweep_sort, ks, layout), plain)
 
     t0 = time.perf_counter()
     corpus = cs.make_corpus(args.docs if "chain_scan" in kernels else 0, cs.SEED)

@@ -423,17 +423,27 @@ def test_chain_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # --- sort3 ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("width", [1, 100, 256, 8192, 16384, 32768])
-def test_sort3_kernel_matches_plain(cuda, width):
-    rng = np.random.default_rng(width + 3)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows", [1, 7, 64, 65])
+@pytest.mark.parametrize("width", [1, 3, 100, 1000, 4097, 8192, 16384, 16385, 32767, 32768,
+                                   40000])
+def test_sort3_kernel_matches_plain(cuda, width, rows, aligned):
+    """Every layout of the register network (one warp a row, one CTA,
+    clusters of 2 and 4) and the shared-memory network above 32768 keys,
+    with ties and both int32 extremes, on aligned tensors (int4 loads
+    where the width allows) and on offset views (scalar loads): one launch,
+    exact."""
+    rng = np.random.default_rng(width * 5 + rows)
     ks = []
     for _ in range(3):
-        k = rng.integers(-3, 3, size=(8, width)).astype(np.int32)
+        k = rng.integers(-3, 3, size=(rows, width)).astype(np.int32)
         k[rng.random(k.shape) < 0.05] = I32_MAX
         k[rng.random(k.shape) < 0.05] = -(2**31)
-        ks.append(torch.from_numpy(k).to(cuda))
+        t = torch.from_numpy(k).to(cuda)
+        ks.append(t if aligned else _offset_view(t))
     before = sort.LAUNCHES["sort3"]
     got, want = sort.sort3(*ks), sort.sort3_plain(*ks)
+    torch.cuda.synchronize()
     assert sort.LAUNCHES["sort3"] == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 

@@ -11,9 +11,12 @@ the card by ``tests/test_torch_card.py`` and ``chip_smoke.py``.
 ``sort3_plain`` must equal ``pallas_sort3(interpret=True)`` and
 ``lax.sort(num_keys=3)`` on full-range keys with ties and the int32
 extremes, as must the CPU wrapper at widths that are not a power of two.
-"""
 
-from typing import NamedTuple
+A numpy model of ``csrc/sort.cu``'s register network (one network for both
+elements: two keys in a u64, three in a u64 and a u32) walks its stage
+schedule, slots and cross-CTA rule in ``sort_geometry``'s layouts and in
+clusters of 1, 2 and 4, and must sort as the plain versions do.
+"""
 
 import jax
 import jax.numpy as jnp
@@ -104,106 +107,140 @@ def test_sort3_cpu_wrapper_matches_lax_at_any_width(width):
 # --- a numpy rehearsal of csrc/sort.cu's register network ------------------------
 
 
-class Sort2Geometry(NamedTuple):
-    """One row's layout in the register network (``csrc/sort.cu``
-    ``sort2_registers``): ``mp`` padded keys, ``keys`` consecutive keys a
-    thread, ``threads`` a CTA (one warp a row below 2048 keys), ``ctas`` a
-    row (a cluster of two at 16384) and ``rows_per_cta``."""
-
-    mp: int
-    keys: int
-    threads: int
-    ctas: int
-    rows_per_cta: int
-
-
-def sort2_geometry(m):
-    """The register network's geometry for rows of ``m`` keys, or None above
-    ``SMEM_WIDTH`` (the shared-memory network)."""
-    mp = max(2, 1 << (m - 1).bit_length())
-    if mp > sort.SMEM_WIDTH:
-        return None
-    if mp <= 1024:
-        mp = max(mp, 64)
-        return Sort2Geometry(mp, mp // 32, 32, 1, 4)
-    ctas = 2 if mp == sort.SMEM_WIDTH else 1
-    return Sort2Geometry(mp, 16, mp // 16 // ctas, ctas, 1)
-
-
 def _swz(i):
-    # sort.cu swz(): the low four index bits XOR the next four.
+    # sort.cu swz(): an 8-byte slot; the low four index bits XOR the next four.
     return i ^ ((i >> 4) & 15)
 
 
-def _model_sort2(k1, k2):
-    """``sort2`` through the stage schedule and index arithmetic of
-    ``csrc/sort.cu``'s register network, in numpy: ``v[row, cta, thread,
-    register]`` in the blocked layout, register stages below ``E``, shuffle
-    stages below ``32 E`` (the partner lane ``lane ^ j / E``), shared-memory
-    stages over the swizzled slots (pair ``q = t + r T``), and the
-    cross-CTA stage through the partner's slots."""
-    rows, m = k1.shape
-    g = sort2_geometry(m)
+def _swz32(i):
+    # sort.cu swz32(): a 4-byte slot; the low five index bits XOR the next five.
+    return i ^ ((i >> 5) & 31)
+
+
+_FLIP = np.uint64(0x80000000)
+_LO32 = np.uint64(0xFFFFFFFF)
+
+
+def _pack(ks):
+    """The kernel's element as a tuple of uint64 words compared in order:
+    (flip(k1) << 32 | k2,) for two keys (Key2), (flip(k1) << 32 | flip(k2),
+    flip(k3)) for three (Key3)."""
+    u = [k.astype(np.uint32).astype(np.uint64) for k in ks]
+    if len(ks) == 2:
+        return (((u[0] ^ _FLIP) << np.uint64(32)) | u[1],)
+    return (((u[0] ^ _FLIP) << np.uint64(32)) | (u[1] ^ _FLIP), u[2] ^ _FLIP)
+
+
+def _unpack(words, n_keys):
+    def i32(x):
+        return (x & _LO32).astype(np.uint32).view(np.int32)
+
+    hi = words[0]
+    if n_keys == 2:
+        return i32((hi >> np.uint64(32)) ^ _FLIP), i32(hi)
+    return i32((hi >> np.uint64(32)) ^ _FLIP), i32(hi ^ _FLIP), i32(words[1] ^ _FLIP)
+
+
+def _less(a, b):
+    """Key2/Key3 less(): words compared in order."""
+    lt = a[-1] < b[-1]
+    for x, y in zip(a[-2::-1], b[-2::-1]):
+        lt = (x < y) | ((x == y) & lt)
+    return lt
+
+
+def _sel(c, a, b):
+    return tuple(np.where(c, x, y) for x, y in zip(a, b))
+
+
+def _exchange(x, y, asc):
+    """sort.cu exchange(): (x, y) ascending where ``asc``, else descending."""
+    swap = _less(y, x) == asc
+    return _sel(swap, y, x), _sel(swap, x, y)
+
+
+def _model_sort(ks, g=None):
+    """``sort2`` (two keys) or ``sort3`` (three) through the stage schedule
+    and index arithmetic of ``csrc/sort.cu``'s register network, in numpy,
+    in the layout ``g`` (default: ``sort_geometry``'s): ``v[row, cta,
+    thread, register]`` in the blocked layout, register stages below ``E``,
+    shuffle stages below ``32 E`` (the partner lane ``lane ^ j / E``),
+    shared-memory stages over the swizzled slots (pair ``q = t + r T``; for
+    three keys hi in 8-byte ``swz`` slots, lo in 4-byte ``swz32`` slots),
+    and each stride of at least ``n`` through the partner CTA ``rank ^ j /
+    n``'s slots (element ``t + r T``), the lower rank keeping the minima
+    where ``(rank n) & k`` is 0."""
+    n_keys = len(ks)
+    rows, m = ks[0].shape
+    g = g or sort.sort_geometry(m, n_keys)
     E, T, C = g.keys, g.threads, g.ctas
     n = T * E
-    packed = (((k1.astype(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64) << np.uint64(32))
-              | k2.astype(np.uint32).astype(np.uint64))
-    pad = np.full((rows, g.mp - m), 0xFFFFFFFF7FFFFFFF, np.uint64)
-    v = np.concatenate([packed, pad], 1).reshape(rows, C, T, E)
+    pad = _pack([np.full((rows, g.mp - m), I32_MAX, np.int32)] * n_keys)
+    v = tuple(np.concatenate([w, p], 1).reshape(rows, C, T, E) for w, p in zip(_pack(ks), pad))
+    slot_of = (_swz, _swz32)[:len(v)]  # each word's slot function
     t = np.arange(T)[None, None, :, None]
     e = np.arange(E)[None, None, None, :]
     c = np.arange(C)[None, :, None, None]
     base = c * n + t * E
-    slot = _swz(t * E + e)[0, 0]  # [T, E]: each register's shared-memory slot
+    blocked = (t * E + e)[0, 0]  # [T, E]: each register's element index
 
     def to_smem(v):
-        s = np.empty((rows, C, n), np.uint64)
-        s[:, :, slot] = v
+        s = tuple(np.empty((rows, C, n), np.uint64) for _ in v)
+        for sw, w, f in zip(s, v, slot_of):
+            sw[:, :, f(blocked)] = w
         return s
 
-    for k in (1 << s for s in range(1, g.mp.bit_length())):
+    def get(s, i):
+        return tuple(sw[:, :, f(i)] for sw, f in zip(s, slot_of))
+
+    def put(s, i, x):
+        for sw, xw, f in zip(s, x, slot_of):
+            sw[:, :, f(i)] = xw
+
+    for k in (1 << b for b in range(1, g.mp.bit_length())):
         j = k // 2
-        if C > 1 and j >= n:
+        while C > 1 and j >= n:
+            d = j // n
             s = to_smem(v)
-            x = s[:, ::-1][:, :, slot]  # the partner CTA's keys, same slots
-            v = np.where(c == 0, np.minimum(v, x), np.maximum(v, x))
+            i = (np.arange(T)[:, None] + np.arange(E)[None, :] * T).ravel()  # t + r T
+            x = tuple(sw[:, np.arange(C) ^ d][:, :, f(i)] for sw, f in zip(s, slot_of))
+            y = get(s, i)
+            keep_min = (((c & d) == 0) == (((c * n) & k) == 0))[..., 0]
+            put(s, i, _sel(_less(x, y) == keep_min, x, y))
+            v = tuple(sw[:, :, f(blocked)] for sw, f in zip(s, slot_of))
             j //= 2
         if j >= 32 * E:
             s = to_smem(v)
             rank = np.arange(C)[:, None]
-
-            def exchange(x, y, asc):
-                return (np.where(asc, np.minimum(x, y), np.maximum(x, y)),
-                        np.where(asc, np.maximum(x, y), np.minimum(x, y)))
-
             while j >= 64 * E:  # two strides a step: quadruples (b, b+h, b+j, b+j+h)
                 q = (np.arange(T)[:, None] + np.arange(E // 4)[None, :] * T).ravel()
                 h = j // 2
                 b = 2 * j * (q // h) + q % h
                 asc = ((rank * n + b[None, :]) & k) == 0
-                idx = [_swz(b), _swz(b + h), _swz(b + j), _swz(b + j + h)]
-                x = [s[:, :, i] for i in idx]
-                x[0], x[2] = exchange(x[0], x[2], asc)
-                x[1], x[3] = exchange(x[1], x[3], asc)
-                x[0], x[1] = exchange(x[0], x[1], asc)
-                x[2], x[3] = exchange(x[2], x[3], asc)
+                idx = [b, b + h, b + j, b + j + h]
+                x = [get(s, i) for i in idx]
+                x[0], x[2] = _exchange(x[0], x[2], asc)
+                x[1], x[3] = _exchange(x[1], x[3], asc)
+                x[0], x[1] = _exchange(x[0], x[1], asc)
+                x[2], x[3] = _exchange(x[2], x[3], asc)
                 for i, xi in zip(idx, x):
-                    s[:, :, i] = xi
+                    put(s, i, xi)
                 j //= 4
             if j >= 32 * E:
                 q = (np.arange(T)[:, None] + np.arange(E // 2)[None, :] * T).ravel()
                 lo = 2 * j * (q // j) + q % j
                 asc = ((rank * n + lo[None, :]) & k) == 0
-                s[:, :, _swz(lo)], s[:, :, _swz(lo + j)] = exchange(
-                    s[:, :, _swz(lo)], s[:, :, _swz(lo + j)], asc)
+                a, b = _exchange(get(s, lo), get(s, lo + j), asc)
+                put(s, lo, a)
+                put(s, lo + j, b)
                 j //= 2
-            v = s[:, :, slot]
+            v = tuple(sw[:, :, f(blocked)] for sw, f in zip(s, slot_of))
         j = min(k // 2, 16 * E)
         while j >= E:
             lm = j // E
-            o = v[:, :, np.arange(T) ^ lm]
+            o = tuple(w[:, :, np.arange(T) ^ lm] for w in v)
             keep_min = (((t % 32) & lm) == 0) == ((base & k) == 0)
-            v = np.where(keep_min, np.minimum(v, o), np.maximum(v, o))
+            v = _sel(_less(o, v) == keep_min, o, v)
             j //= 2
         j = E // 2
         while j >= 1:
@@ -211,47 +248,93 @@ def _model_sort2(k1, k2):
                 for r in range(E):
                     if r & j == 0:
                         asc = ((base[..., 0] + r) & k) == 0
-                        a, b = v[..., r].copy(), v[..., r | j].copy()
-                        v[..., r] = np.where(asc, np.minimum(a, b), np.maximum(a, b))
-                        v[..., r | j] = np.where(asc, np.maximum(a, b), np.minimum(a, b))
+                        a, b = _exchange(tuple(w[..., r] for w in v),
+                                         tuple(w[..., r | j] for w in v), asc)
+                        for w, aw, bw in zip(v, a, b):
+                            w[..., r], w[..., r | j] = aw, bw
             j //= 2
-    out = v.reshape(rows, g.mp)[:, :m]
-    return ((out >> np.uint64(32)).astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32), \
-        (out & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return _unpack(tuple(w.reshape(rows, g.mp)[:, :m] for w in v), n_keys)
 
 
-@pytest.mark.parametrize("width", [1, 3, 64, 255, 256, 512, 1025, 2048, 2049, 4096, 8192,
-                                   16383, 16384])
-def test_register_network_model_sorts(width):
-    """The numpy model of the kernel's stage schedule equals sort2_plain on
-    rows with ties, both int32 extremes and payloads up to INT32_MAX - 1,
-    at every main-path width and ragged ones."""
-    rng = np.random.default_rng(width + 11)
-    rows = 3
-    k1, k2 = _keys(rng, (rows, width))
-    k2[:, ::7] = rng.integers(0, I32_MAX - 1, size=k2[:, ::7].shape)
-    if width > 8:  # an already sorted and a reverse-sorted row
-        k1[1] = np.sort(k1[1])
-        k1[2] = np.sort(k1[2])[::-1]
-    got = _model_sort2(k1, k2)
-    want = sort.sort2_plain(torch.from_numpy(k1), torch.from_numpy(k2))
-    np.testing.assert_array_equal(got[0], want[0].numpy())
-    np.testing.assert_array_equal(got[1], want[1].numpy())
+def _model_keys(rng, n_keys, rows, width):
+    """Rows with ties, both int32 extremes and (two keys) payloads up to
+    INT32_MAX - 1; beyond 8 keys an already sorted and a reverse-sorted row."""
+    if n_keys == 2:
+        k1, k2 = _keys(rng, (rows, width))
+        k2[:, ::7] = rng.integers(0, I32_MAX - 1, size=k2[:, ::7].shape)
+        ks = [k1, k2]
+    else:
+        ks = _keys3(rng, (rows, width))
+    if width > 8:
+        ks[0][1] = np.sort(ks[0][1])
+        ks[0][2 % rows] = np.sort(ks[0][2 % rows])[::-1]
+    return ks
+
+
+def _plain(ks):
+    t = tuple(map(torch.from_numpy, ks))
+    return [x.numpy() for x in (sort.sort2_plain(*t) if len(ks) == 2 else sort.sort3_plain(*t))]
+
+
+_MODEL_CASES = (
+    [pytest.param(2, w, id=str(w)) for w in (1, 3, 64, 255, 256, 512, 1025, 2048, 2049, 4096,
+                                             8192, 16383, 16384)]
+    + [pytest.param(3, w, id=f"sort3-{w}") for w in (1, 3, 255, 256, 1025, 8192, 16385, 32768)])
+
+
+@pytest.mark.parametrize("n_keys, width", _MODEL_CASES)
+def test_register_network_model_sorts(n_keys, width):
+    """The numpy model of the kernel's stage schedule equals sort2_plain
+    (two keys) or sort3_plain and ``lax.sort(num_keys=3)`` (three) on rows
+    with ties and both int32 extremes, at every main-path width and ragged
+    ones, in sort_geometry's layout."""
+    rng = np.random.default_rng(width + 11 + 100 * n_keys)
+    rows = 3 if n_keys == 2 or width <= 8192 else 2
+    ks = _model_keys(rng, n_keys, rows, width)
+    got = _model_sort(ks)
+    want = _plain(ks)
+    for gk, wk in zip(got, want):
+        np.testing.assert_array_equal(gk, wk)
+    if n_keys == 3:
+        lax = jax.lax.sort(tuple(map(jnp.asarray, ks)), dimension=1, num_keys=3)
+        for gk, wk in zip(got, lax):
+            np.testing.assert_array_equal(gk, np.asarray(wk))
+
+
+@pytest.mark.parametrize("n_keys, mp, keys, ctas", [
+    (3, 8192, 8, 1), (3, 8192, 8, 2), (3, 8192, 16, 4), (3, 16384, 16, 4), (3, 32768, 8, 4),
+    (2, 8192, 16, 4)])
+def test_register_network_model_clusters(n_keys, mp, keys, ctas):
+    """The model in layouts beside sort_geometry's (one CTA, clusters of 2
+    and 4, E = 8 and 16): the general cross-CTA rule (partner rank ^ j/n,
+    direction from the rank bits) sorts as the plain version does."""
+    rng = np.random.default_rng(mp + keys + ctas)
+    ks = _model_keys(rng, n_keys, 2, mp - 5)
+    g = sort.SortGeometry(mp, keys, mp // keys // ctas, ctas, 1)
+    for gk, wk in zip(_model_sort(ks, g), _plain(ks)):
+        np.testing.assert_array_equal(gk, wk)
 
 
 def test_register_network_geometry_and_banks():
-    """Every width up to SMEM_WIDTH has a layout whose threads cover the
-    padded row once; above it the shared-memory network runs.  The swizzle
-    is a bijection, and the 8-byte accesses of a half-warp (a blocked
-    write of one register, a shared-memory stage's 16 consecutive pairs)
-    land on 16 distinct bank pairs."""
-    for m in (1, 2, 33, 64, 100, 1024, 1025, 5000, 8192, 16383, 16384):
-        g = sort2_geometry(m)
-        assert g.mp >= m and g.keys * g.threads * g.ctas == g.mp
-        assert g.threads % 32 == 0 and g.threads <= 1024 and g.keys in (2, 4, 8, 16, 32)
-        assert g.ctas == 1 or (g.ctas == 2 and g.rows_per_cta == 1)
-        assert g.rows_per_cta == 1 or g.threads == 32  # several rows per CTA: one warp each
-    assert sort2_geometry(16385) is None
+    """Every width up to REG_WIDTH2 (sort2) or REG_WIDTH3 (sort3) has a
+    layout whose threads cover the padded row once; above it the
+    shared-memory network runs.  The swizzle is a bijection, and the 8-byte
+    accesses of a half-warp (a blocked write of one register, a
+    shared-memory stage's 16 consecutive pairs) land on 16 distinct bank
+    pairs."""
+    for n_keys, top in ((2, sort.REG_WIDTH2), (3, sort.REG_WIDTH3)):
+        for m in (1, 2, 33, 64, 100, 1024, 1025, 5000, 8192, 16383, 16384, 16385, 32768):
+            g = sort.sort_geometry(m, n_keys)
+            if m > top:
+                assert g is None
+                continue
+            assert g.mp >= m and g.keys * g.threads * g.ctas == g.mp
+            assert g.threads % 32 == 0 and g.keys in (2, 4, 8, 16, 32)
+            assert g.threads * g.keys <= 8192 and g.ctas in (1, 2, 4)
+            assert g.rows_per_cta == 1 or (g.threads == 32 and g.ctas == 1)
+            assert g.rows_per_cta in (1, 4)
+        assert sort.sort_geometry(top + 1, n_keys) is None
+    assert max(sort.sort_geometry(m, 2).ctas for m in range(1, 16385, 511)) == 2
     i = np.arange(8192)
     assert sorted(_swz(i)) == list(i)
     for e in range(16):
@@ -267,3 +350,34 @@ def test_register_network_geometry_and_banks():
                 b = 2 * j * (q // (j // 2)) + q % (j // 2)
                 for off in (0, j // 2, j, j + j // 2):
                     assert len(set(_swz(b + off) % 16)) == 16
+
+
+def test_register_network_key3_banks():
+    """sort3's two shared-memory arrays: the hi slots (8 bytes, ``swz``)
+    take 16 distinct bank pairs a half-warp and the lo slots (4 bytes,
+    ``swz32``) 32 distinct banks a warp, for a blocked write of one
+    register at E = 8 and 16 and for the 32 consecutive pairs or
+    quadruple members of a shared-memory stage (strides 32E .. 4096);
+    ``swz32`` is a bijection."""
+    i = np.arange(8192)
+    assert sorted(_swz32(i)) == list(i)
+    for E in (8, 16):
+        for t0 in (0, 32, 96, 1024 // E - 32):
+            lanes = np.arange(t0, t0 + 32)
+            for e in range(E):
+                idx = lanes * E + e
+                assert len(set(_swz32(idx) % 32)) == 32
+                for half in (idx[:16], idx[16:]):
+                    assert len(set(_swz(half) % 16)) == 16
+        j = 32 * E
+        while j <= 4096:
+            for q0 in (0, 32, 8192 // 4 - 32):
+                q = np.arange(q0, q0 + 32)
+                lo = 2 * j * (q // j) + q % j
+                quads = [2 * j * (q // (j // 2)) + q % (j // 2)] if j >= 64 * E else []
+                for b in [lo, lo + j] + [x + off for x in quads
+                                         for off in (0, j // 2, j, j + j // 2)]:
+                    assert len(set(_swz32(b) % 32)) == 32
+                    assert len(set(_swz(b[:16]) % 16)) == 16
+                    assert len(set(_swz(b[16:]) % 16)) == 16
+            j *= 2

@@ -127,9 +127,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.tb_dfa_scan.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.tb_dfa_scan.restype = i
     elif name == "sort":
-        lib.tb_sort2.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.tb_sort2.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.tb_sort2.restype = i
-        lib.tb_sort3.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.tb_sort3.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.tb_sort3.restype = i
     elif name == "fused":
         ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
