@@ -41,19 +41,31 @@ Phases (any failure exits non-zero without the final result line):
    documents whose lengths fill all five default buckets is written to
    Parquet and run through the port's ``run`` entry point on ``cuda`` with
    ``configs/pipeline_config_offline.yaml``: under the chain schedule (the
-   default) and the fused schedule (``TEXTBLAST_DEPFUSE=off``) over the
-   whole corpus, twice each in turns (chain, fused, fused, chain), and
-   under the staged schedule (``TEXTBLAST_FUSED=off``) over its first 5,000
-   documents; then once through the port's host oracle (sharded over the
-   CPU cores, one process per shard).  Each run's kept and excluded sets
-   must equal the oracle's id for id (text and metadata); the chain run
-   must dispatch every default bucket; each chain run must launch
-   ``chain_scan``, ``fused_scan``, ``affine_scan``, ``dfa_scan`` and
-   ``sort2``; each fused run ``fused_scan`` and never ``chain_scan``; the
-   staged run ``affine_scan``, ``dfa_scan`` and ``sort2`` and neither
-   ``fused_scan`` nor ``chain_scan``.  Launch counters (per kernel, per
-   shape, and per chain site and width) are set to 0 just before each run
-   and read just after.
+   default) over the whole corpus, windowed (the default: reader thread,
+   pack pool, a dispatch thread on its own CUDA stream with two batches in
+   flight, writer threads) and serial (``TEXTBLAST_NO_OVERLAP=1``), twice
+   each in turns (windowed, serial, serial, windowed); over its first 5,000
+   documents, windowed, under the fused schedule
+   (``TEXTBLAST_DEPFUSE=off``), the staged one (``TEXTBLAST_FUSED=off``)
+   and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``;
+   then once through the port's host oracle (sharded over the CPU cores,
+   one process per shard).  Each run's kept and excluded sets must equal
+   the oracle's id for id (text and metadata), parity exactly 1.0; each
+   windowed chain run must write the same kept and excluded ids, and the
+   same bytes, as each serial one; the chain run must dispatch every
+   default bucket and route astral documents to the host (the u16 wire);
+   each chain run must launch ``chain_scan``, ``fused_scan``,
+   ``affine_scan``, ``dfa_scan`` and ``sort2``; each fused run
+   ``fused_scan`` and never ``chain_scan``; the staged run ``affine_scan``,
+   ``dfa_scan`` and ``sort2`` and neither ``fused_scan`` nor
+   ``chain_scan``.  Launch counters (per kernel, per shape, and per chain
+   site and width) are set to 0 just before each run and read just after.
+   Each run prints docs/s, parity, the stage seconds (pack, device per
+   phase, wait, drain, assembly, host routes and their tail share, read,
+   write), the host
+   routes by cause, the bytes uploaded and the device-busy share: CUDA
+   events around each batch on the stream that ran it, summed, over the
+   run's wall time.
 5. Launches per shape: the first chain run's launches of every kernel by
    shape and variant, each beside the kernel's time at that shape
    (``sort2`` and the per-scan kernels are timed at every shape and
@@ -84,7 +96,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # gives no int32 rate, so the kernels' integer operations are held to it.
 OPS_PER_S = 67e12
 N_DOCS = int(os.environ.get("CHIP_SMOKE_DOCS", "20000"))
-STAGED_SUBSET = 5000  # the staged run's documents
+STAGED_SUBSET = 5000  # the documents of the runs over a subset
+#: Windowed runs over the first STAGED_SUBSET documents: the fused and the
+#: staged schedules, and the chain schedule with the host tails off.
+SUBSET_RUNS = (("fused", {"TEXTBLAST_DEPFUSE": "off"}), ("staged", {"TEXTBLAST_FUSED": "off"}),
+               ("chain_tails_off", {"TEXTBLAST_HOST_TAILS": "off"}))
 SEED = 20251016
 # The offline config's GopherRepetition n-gram sizes.
 TOP_NS, DUP_NS = (2, 3, 4), (5, 6, 7, 8, 9, 10)
@@ -137,8 +153,9 @@ def smi_line() -> str:
 
 def make_corpus(n_docs: int, seed: int):
     """Seeded (id, text) rows: prose from the two word lists with about 5%
-    repeated-line boilerplate, 3% citations, 1% CJK and a few empty rows,
-    lengths drawn from ``LENGTH_MIX``."""
+    repeated-line boilerplate, 3% citations, 1% CJK, 1% ending in an emoji
+    (a supplementary-plane code point) and a few empty rows, lengths drawn
+    from ``LENGTH_MIX``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -180,6 +197,8 @@ def make_corpus(n_docs: int, seed: int):
             text = "\n".join(parts)[:target]
             if 0.08 <= kind < 0.09:
                 text = ("数据处理流水线的测试文本，包含中文。" + text)[:target]
+            elif 0.09 <= kind < 0.10:
+                text = (text[: max(0, target - 3)] + " \U0001F600")[:target]
         if i % 2000 == 17:
             text = ""
         rows.append((f"doc-{i}", text))
@@ -912,14 +931,20 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
     if device == "cuda":
         torch.cuda.synchronize()
     dev_s = time.perf_counter() - t0
+    c = pipe.counters
     return {
         "schedule": tag,
+        "overlapped": config.overlap.enabled and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1",
+        "host_tails": os.environ.get("TEXTBLAST_HOST_TAILS") != "off",
         "received": res.received,
         "kept": res.success,
         "excluded": res.filtered,
         "errors": res.errors,
         "device_seconds": dev_s,
         "device_docs_per_s": res.received / dev_s,
+        # Summed CUDA-event spans, each batch's upload to its download on
+        # the stream that ran it, over the run's wall time.
+        "device_busy_share": c["seconds"]["device_busy"] / dev_s,
         "launches": {**scan.LAUNCHES, **sort.LAUNCHES},
         "chain_site_launches": dict(scan.CHAIN_SITE_LAUNCHES),
         # [[kernel, rows, width], n] and [[site, width], n] (JSON keys are strings).
@@ -927,13 +952,15 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
                                  {**scan.SHAPE_LAUNCHES, **sort.SHAPE_LAUNCHES}.items()),
         "chain_shape_launches": sorted(([list(k), v] for k, v in
                                         scan.CHAIN_SHAPE_LAUNCHES.items()), key=str),
-        "pipeline_launches": dict(pipe.counters["launches"]),
-        "batches_by_bucket": {str(k): v for k, v in sorted(pipe.counters["batches_by_bucket"].items())},
-        "device_rows": pipe.counters["device_rows"],
-        "host_fallback": pipe.counters["host_fallback"],
-        "host_routed_dict_script": pipe.counters["host_routed_dict_script"],
-        "host_overflow": pipe.counters["host_overflow"],
-        "seconds": pipe.counters["seconds"],
+        "pipeline_launches": dict(c["launches"]),
+        "batches_by_bucket": {str(k): v for k, v in sorted(c["batches_by_bucket"].items())},
+        "device_rows": c["device_rows"],
+        "upload_bytes": c["upload_bytes"],
+        "wire": "u16" if pipe.wire_u16 else "cp32",
+        "host_routes": {k: c[k] for k in ("host_fallback", "host_routed_dict_script",
+                                          "host_routed_astral", "host_overflow",
+                                          "host_tail")},
+        "seconds": {**c["seconds"], "read": res.seconds["read"], "write": res.seconds["write"]},
         "dup_walk": dict(stats.DUP_WALK),
         "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20) if device == "cuda" else None,
         "outputs": out,
@@ -953,28 +980,39 @@ def _parity(run, host_kept, host_excl, ids=None):
     return agree / max(len(host_kept) + len(host_excl), 1), equal
 
 
-def scheduled_run(config, inp, work, tag, device, switch=None):
-    """:func:`device_run` with one schedule switch set to ``off`` for the
-    run only."""
-    prev = os.environ.get(switch) if switch else None
-    if switch:
-        os.environ[switch] = "off"
+def env_run(config, inp, work, tag, device, env=None):
+    """:func:`device_run` with the variables of ``env`` set for the run
+    only."""
+    env = env or {}
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         return device_run(config, inp, work, tag, device)
     finally:
-        if switch and prev is None:
-            del os.environ[switch]
-        elif switch:
-            os.environ[switch] = prev
+        for k, v in prev.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _ids(path: str):
+    import pyarrow.parquet as pq
+
+    return set(pq.read_table(path, columns=["id"]).column("id").to_pylist())
 
 
 def main_path(device: str, rows, work: str):
-    """The chain schedule (this port's default) and the fused schedule
-    (``TEXTBLAST_DEPFUSE=off``) over the whole corpus, twice each in turns
-    (chain, fused, fused, chain: a drift of the host over the call weighs
-    on both alike), the staged schedule (``TEXTBLAST_FUSED=off``) over its
-    first ``STAGED_SUBSET`` documents, every run held against one
-    host-oracle run."""
+    """The chain schedule (this port's default) windowed (the default) and
+    serial (``TEXTBLAST_NO_OVERLAP=1``, as ``run --no-overlap``) over the
+    whole corpus, twice each in turns (window, serial, serial, window: a
+    drift of the host over the call weighs on both alike); then over the
+    first ``STAGED_SUBSET`` documents, windowed, the fused schedule
+    (``TEXTBLAST_DEPFUSE=off``), the staged one (``TEXTBLAST_FUSED=off``)
+    and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``.
+    Every run is held against one host-oracle run, and each windowed chain
+    run against each serial one: the same kept and excluded ids, and the
+    same bytes."""
     from textblaster_tpu_torch.config.pipeline import load_pipeline_config
     from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
 
@@ -986,18 +1024,20 @@ def main_path(device: str, rows, work: str):
 
     # Warm-up, not measured: tables, the language model and the host
     # executor load on first use, which would otherwise fall on the first
-    # schedule of the A/B.
+    # run of the A/B.
     warm = os.path.join(work, "corpus_warmup.parquet")
     write_parquet(warm, rows[:200])
     device_run(config, warm, work, "warmup", device)
 
-    runs = [scheduled_run(config, inp, work, tag, device, switch)
-            for tag, switch in (("chain", None), ("fused", "TEXTBLAST_DEPFUSE"),
-                                ("fused_2", "TEXTBLAST_DEPFUSE"), ("chain_2", None))]
+    serial = {"TEXTBLAST_NO_OVERLAP": "1"}
+    runs = [env_run(config, inp, work, tag, device, env)
+            for tag, env in (("chain", None), ("chain_serial", serial),
+                             ("chain_serial_2", serial), ("chain_2", None))]
     sub = rows[:STAGED_SUBSET]
-    staged_inp = os.path.join(work, "corpus_staged.parquet")
-    write_parquet(staged_inp, sub)
-    runs.append(scheduled_run(config, staged_inp, work, "staged", device, "TEXTBLAST_FUSED"))
+    sub_inp = os.path.join(work, "corpus_staged.parquet")
+    write_parquet(sub_inp, sub)
+    runs += [env_run(config, sub_inp, work, tag, device, env)
+             for tag, env in SUBSET_RUNS]
 
     t0 = time.perf_counter()
     host_kept, host_excl, host_received = host_oracle(inp, work)
@@ -1013,19 +1053,29 @@ def main_path(device: str, rows, work: str):
             "fused": ("fused_scan", "affine_scan", "dfa_scan", "sort2"),
             "staged": ("affine_scan", "dfa_scan", "sort2")}
     never = {"chain": (), "fused": ("chain_scan",), "staged": ("fused_scan", "chain_scan")}
+    sub_ids = {r[0] for r in sub}
     for run in runs:
         tag = run["schedule"]
-        whole = tag != "staged"
+        whole = tag not in dict(SUBSET_RUNS)
         run["decision_parity"], equal = _parity(
-            run, host_kept, host_excl, None if whole else {r[0] for r in sub}
+            run, host_kept, host_excl, None if whole else sub_ids
         )
         summary[tag] = run
-        print(f"main path, {tag} schedule: {run['received']} documents, "
+        sec = run["seconds"]
+        stages = {k: round(sec[k], 3) for k in ("pack", "wait", "drain", "assemble",
+                                                 "host_routes", "host_tails", "read",
+                                                 "write")}
+        stages["device"] = {str(p): round(v, 3) for p, v in sec["device"].items()}
+        print(f"main path, {tag} ({'windowed' if run['overlapped'] else 'serial'}, host tails "
+              f"{'on' if run['host_tails'] else 'off'}): {run['received']} documents, "
               f"{run['device_docs_per_s']:.2f} docs/s ({run['device_seconds']:.2f} s), "
-              f"parity {run['decision_parity']}, phase seconds {json.dumps(run['seconds'])}, "
-              f"dup walk {run['dup_walk']['seconds']:.2f} s, launches {run['launches']}",
-              flush=True)
-        if not equal or (whole and run["received"] != host_received):
+              f"parity {run['decision_parity']}, device-busy share "
+              f"{run['device_busy_share']:.4f}, stage seconds {json.dumps(stages)}, "
+              f"host routes {json.dumps(run['host_routes'])}, uploaded "
+              f"{run['upload_bytes']} bytes ({run['wire']}), dup walk "
+              f"{run['dup_walk']['seconds']:.2f} s, launches {run['launches']}", flush=True)
+        if (run["decision_parity"] != 1.0 or not equal
+                or (whole and run["received"] != host_received)):
             fail(f"{tag} run and host oracle differ (parity {run['decision_parity']})")
         schedule = tag.split("_")[0]
         for k in must[schedule]:
@@ -1034,6 +1084,23 @@ def main_path(device: str, rows, work: str):
         for k in never[schedule]:
             if run["launches"][k] != 0:
                 fail(f"the {tag} schedule launched {k}")
+    for tag in ("chain", "chain_2"):
+        for ser in ("chain_serial", "chain_serial_2"):
+            for i in (0, 1):
+                a, b = summary[tag]["outputs"][i], summary[ser]["outputs"][i]
+                if _ids(a) != _ids(b):
+                    fail(f"{tag} and {ser} keep or exclude different ids")
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    if fa.read() != fb.read():
+                        fail(f"{tag} and {ser} wrote different bytes to {os.path.basename(a)}")
+    if not all(summary[t]["overlapped"] for t in ("chain", "chain_2", *dict(SUBSET_RUNS))):
+        fail("a windowed run ran serially")
+    if any(summary[t]["overlapped"] for t in ("chain_serial", "chain_serial_2")):
+        fail("a serial run was windowed")
+    if summary["chain"]["host_routes"]["host_routed_astral"] <= 0:
+        fail("the u16 wire routed no astral document to the host")
+    if summary["chain_tails_off"]["host_routes"]["host_tail"] != 0:
+        fail("TEXTBLAST_HOST_TAILS=off still routed tails to the host")
     print("main path: " + json.dumps(summary), flush=True)
     missing = [b for b in DEFAULT_BUCKETS if summary["chain"]["batches_by_bucket"].get(str(b), 0) == 0]
     if missing:

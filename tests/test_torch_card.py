@@ -456,3 +456,77 @@ def test_sort3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         sort.sort3(x, x, x[:, :4])
     with pytest.raises(ValueError):
         sort.sort3(x.t(), x.t(), x.t())
+
+
+# --- the overlapped window on the card ------------------------------------------
+
+
+def _card_corpus(n=130, seed=3):
+    """Danish prose of 1-40 lines, boilerplate repeats, CJK and emoji rows:
+    both buckets below, the dictionary-script and astral routes and tails."""
+    rng = np.random.default_rng(seed)
+    words = ("det er en god dag og vi skal ud at gå tur i skoven solen skinner over "
+             "byen der mange mennesker på gaden som arbejde nu efter turen").split()
+    rows = []
+    for i in range(n):
+        lines = [" ".join(words[int(j)] for j in rng.integers(0, len(words), int(rng.integers(4, 14))))
+                 .capitalize() + "." for _ in range(int(rng.integers(1, 40)))]
+        text = "\n".join(lines)
+        if i % 17 == 3:
+            text = "Samme linje her igen og igen.\n" * int(rng.integers(4, 30))
+        elif i % 23 == 5:
+            text = "数据处理流水线的测试文本。" + text
+        elif i % 29 == 7:
+            text = text + " \U0001F600"
+        rows.append((f"c{i}", text[:2040]))
+    return rows
+
+
+def test_window_matches_serial_on_the_card(cuda, monkeypatch):
+    """The windowed run at depth 2 (its dispatch thread on a stream of its
+    own) gives depth 1's outcome sequence, and every stats dict it fetched
+    equals a serial ``dispatch_batch`` + ``fetch`` of the same batch on the
+    default stream."""
+    import os
+
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+
+    monkeypatch.delenv("TEXTBLAST_NO_OVERLAP", raising=False)
+    monkeypatch.setenv("TEXTBLAST_HOST_TAILS", "on")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rows = _card_corpus()
+    seqs, fetched = {}, []
+    for depth in (1, 2):
+        cfg = load_pipeline_config(os.path.join(root, "configs/pipeline_config_offline.yaml"))
+        cfg.overlap.pipeline_depth = depth
+        tp = CompiledPipeline(cfg, buckets=(512, 2048), batch_size=16, device=cuda)
+        assert tp.wire_u16
+        if depth == 2:
+            real = tp.run_batch
+
+            def recording(batch, phase=0, stream=None):
+                assert stream is not None and stream != torch.cuda.default_stream(cuda)
+                out = real(batch, phase, stream)
+                fetched.append((batch, phase, out[0]))
+                return out
+
+            monkeypatch.setattr(tp, "run_batch", recording)
+        outs = tp.process_chunk([TextDocument(id=i, source="t", content=t) for i, t in rows])
+        seqs[depth] = [(o.document.id, o.kind, o.reason,
+                        tuple(sorted(o.document.metadata.items())), o.document.content)
+                       for o in outs]
+        assert tp.counters["seconds"]["device_busy"] > 0.0
+        assert tp.counters["host_routed_astral"] > 0 and tp.counters["host_tail"] > 0
+    assert len(seqs[1]) == len(rows)
+    assert seqs[1] == seqs[2]
+    assert fetched
+    serial = CompiledPipeline(load_pipeline_config(
+        os.path.join(root, "configs/pipeline_config_offline.yaml")),
+        buckets=(512, 2048), batch_size=16, device=cuda)
+    for batch, phase, stats in fetched:
+        want = serial.fetch(serial.dispatch_batch(batch, phase))
+        assert sorted(stats) == sorted(want)
+        for k in want:
+            assert np.array_equal(stats[k], want[k]), (batch.max_len, phase, k)

@@ -131,9 +131,10 @@ def test_stats_dict_matches_jax_per_bucket_phase(corpus, monkeypatch, bucket, sc
 
 
 def test_small_leftover_groups_run_on_the_device(corpus, monkeypatch):
-    """Only dictionary-script documents reach the host oracle here: the
-    partial end-of-chunk groups of every phase are packed for the device."""
-    monkeypatch.delenv("TEXTBLAST_HOST_TAILS", raising=False)
+    """With ``TEXTBLAST_HOST_TAILS=off`` only dictionary-script documents
+    reach the host oracle here: the partial end-of-chunk groups of every
+    phase are packed for the device."""
+    monkeypatch.setenv("TEXTBLAST_HOST_TAILS", "off")
     from textblaster_tpu_torch.data_model import TextDocument
 
     rows = corpus[:40]
@@ -144,6 +145,27 @@ def test_small_leftover_groups_run_on_the_device(corpus, monkeypatch):
     assert len(outs) == len(rows)
     assert tp.counters["host_fallback"] == tp.counters["host_routed_dict_script"] == n_cjk
     assert tp.counters["device_rows"] >= len(rows) - n_cjk
+    assert tp.counters["host_tail"] == 0
+
+
+def test_small_leftover_groups_go_to_the_host_with_tails_on(corpus, monkeypatch):
+    """Host tails on (the default outside the test suite): leftover groups
+    at or below a phase's cutoff (a sixteenth of a batch in phase 0, half
+    after it) are decided by the host oracle and counted as tails, apart
+    from the dictionary-script fallback."""
+    monkeypatch.setenv("TEXTBLAST_HOST_TAILS", "on")
+    from textblaster_tpu_torch.data_model import TextDocument
+
+    rows = corpus[:40]
+    docs = [TextDocument(id=i, source="t", content=t) for i, t in rows]
+    tp = CompiledPipeline(load_pipeline_config(CONFIG), buckets=BUCKETS,
+                          batch_size=16, device="cpu")
+    outs = list(tp.process_chunk(docs))
+    n_cjk = sum("数" in t for _, t in rows)
+    assert len(outs) == len(rows)
+    assert tp.counters["host_fallback"] == tp.counters["host_routed_dict_script"] == n_cjk
+    assert tp.counters["host_tail"] > 0
+    assert tp.counters["device_rows"] + n_cjk + tp.counters["host_tail"] >= len(rows)
 
 
 @pytest.fixture(scope="module")

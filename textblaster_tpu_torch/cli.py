@@ -1,7 +1,8 @@
 """Command-line interface: ``python -m textblaster_tpu_torch run|validate-config``.
 
 The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
-``run`` command that this slice supports, spelled the same way, plus
+``run`` command that the port supports (``--pipeline-depth`` and
+``--no-overlap`` among them), spelled the same way, plus
 ``--backend device|host`` and ``--device cuda|cpu`` (``cuda`` is the
 default; the run fails rather than fall back when CUDA is absent).
 """
@@ -52,6 +53,18 @@ def build_parser() -> argparse.ArgumentParser:
                           "take the bit-exact host fallback")
     run.add_argument("--device-batch", type=int, default=None,
                      help="Documents per device batch")
+    run.add_argument("--pipeline-depth", type=int, default=None,
+                     help="Device batches kept in flight by the overlapped "
+                          "host pipeline (default: the config's "
+                          "overlap.pipeline_depth, 2).  Higher values hide "
+                          "more host time behind device compute at the cost "
+                          "of one packed batch of host memory each")
+    run.add_argument("--no-overlap", action="store_true",
+                     help="Disable the overlapped host pipeline (reader "
+                          "thread, pack pool, in-flight window, writer "
+                          "thread) and run the serial path.  Outputs are "
+                          "byte-identical either way; this is the "
+                          "escape hatch and A/B baseline")
     run.add_argument("--quiet", action="store_true", help="Suppress the summary line")
 
     val = sub.add_parser("validate-config", help="Validate a pipeline configuration and exit")
@@ -81,6 +94,14 @@ def _cmd_run(args: argparse.Namespace) -> int:
     except PipelineError as e:
         print(f"Failed to load pipeline config: {e}", file=sys.stderr)
         return 1
+    if args.no_overlap:
+        config.overlap.enabled = False
+    if args.pipeline_depth is not None:
+        if args.pipeline_depth < 1:
+            print(f"Invalid --pipeline-depth value: {args.pipeline_depth}",
+                  file=sys.stderr)
+            return 1
+        config.overlap.pipeline_depth = args.pipeline_depth
     buckets = None
     if args.buckets:
         try:

@@ -138,6 +138,7 @@ def iter_packed_batches(
     docs: Iterator[TextDocument],
     batch_size: int = 256,
     buckets: Sequence[int] = DEFAULT_BUCKETS,
+    host_tail_max: int = 0,
     route_fn=None,
     pack_fn=pack_documents,
     geometry=None,
@@ -167,8 +168,12 @@ def iter_packed_batches(
     recent) document needs — with a uniform geometry this degenerates to
     exactly the historical ``batch_size``-sized slices.  Each group is
     packed at the smallest bucket that fits its longest document — one
-    near-full batch instead of several near-empty ones.  Every group, however
-    small, is packed: the port hands no leftover group to the host oracle.
+    near-full batch instead of several near-empty ones.  Groups of at most
+    ``host_tail_max`` documents are handed back as fallback docs: below
+    that size the (bit-exact) host oracle is cheaper than any padded device
+    batch.  ``host_tail_max`` may be a per-bucket mapping — with unequal
+    row budgets the "below ~a fraction of a batch" cutoff must follow the
+    group's own bucket, not one global row count.
     """
     if geometry is not None:
         buckets = tuple(geometry.buckets)
@@ -176,6 +181,10 @@ def iter_packed_batches(
     else:
         buckets = tuple(sorted(buckets))
         rows_for = {b: batch_size for b in buckets}
+    if isinstance(host_tail_max, dict):
+        tail_for = {b: int(host_tail_max.get(b, 0)) for b in buckets}
+    else:
+        tail_for = {b: int(host_tail_max) for b in buckets}
     margin = PACK_MARGIN
     largest = buckets[-1] - margin
     pending: dict[int, List[TextDocument]] = {b: [] for b in buckets}
@@ -209,18 +218,27 @@ def iter_packed_batches(
         # geometry) its row budget only shrinks; flush when the group
         # already fills the incoming document's budget.
         if group and len(group) >= rows_for[need]:
-            yield pack_fn(
-                group, batch_size=rows_for[group_bucket], max_len=group_bucket
-            ), []
+            if len(group) <= tail_for[group_bucket]:
+                yield None, group
+            else:
+                yield pack_fn(
+                    group, batch_size=rows_for[group_bucket], max_len=group_bucket
+                ), []
             group = []
         group.append(doc)
         group_bucket = need
         if len(group) >= rows_for[need]:
-            yield pack_fn(group, batch_size=rows_for[need], max_len=need), []
+            if len(group) <= tail_for[need]:
+                yield None, group
+            else:
+                yield pack_fn(group, batch_size=rows_for[need], max_len=need), []
             group = []
     if group:
-        yield pack_fn(
-            group, batch_size=rows_for[group_bucket], max_len=group_bucket
-        ), []
+        if len(group) <= tail_for[group_bucket]:
+            yield None, group
+        else:
+            yield pack_fn(
+                group, batch_size=rows_for[group_bucket], max_len=group_bucket
+            ), []
     if overflow:
         yield None, overflow

@@ -18,16 +18,29 @@ schedule under ``TEXTBLAST_FUSED=off``.  All give the same statistics.
 :attr:`CompiledPipeline.counters` ``["launches"]`` counts the hand-written
 kernels' launches by kernel.
 
-Batches run serially: one at a time, survivors repacked between phases.
-Uploads are int32.  Not ported yet: C4BadWords on the device (it runs as a
-host step), the uint16 wire, the K-deep overlap window, the
+:meth:`CompiledPipeline.process_chunk` runs the JAX package's overlapped
+window: the packer runs ahead on a prefetch thread with packs on the shared
+pack pool, and ``pipeline_depth`` batches are in flight on one dispatch
+thread, which runs upload -> device function -> fetch for each batch on a
+CUDA stream of its own while the caller's thread assembles the oldest
+batch's outcomes and runs the host routes.  Outcomes leave in the packer's
+FIFO order at every depth, so the serial path (``TEXTBLAST_NO_OVERLAP=1``,
+``overlap.enabled: false``) gives the same sequence.  Uploads are uint16 on
+``cuda`` (``TEXTBLAST_WIRE=u16|cp32`` pins the wire), with documents holding
+astral code points routed to the host oracle, and small leftover groups go
+to the host oracle (``TEXTBLAST_HOST_TAILS=off`` keeps them on the device).
+Not ported yet: C4BadWords on the device (it runs as a host step), the
 retry/split/host ladder, meshes and warmup.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 import time
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from itertools import islice
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -44,10 +57,17 @@ from ..filters.gopher_quality import DEFAULT_STOP_WORDS
 from ..models.langid import ISO_TO_NAME, LANGUAGES, NAME_TO_ISO, LangIdModel
 from ..orchestration import execute_processing_pipeline
 from ..pipeline_builder import build_pipeline_from_config
+from ..utils.overlap import prefetch_iter, shared_pack_pool
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
 from . import scan, sort
-from .packing import DEFAULT_BUCKETS, PACK_MARGIN, PackedBatch, iter_packed_batches
+from .packing import (
+    DEFAULT_BUCKETS,
+    PACK_MARGIN,
+    PackedBatch,
+    iter_packed_batches,
+    pack_documents,
+)
 from .stats import (
     C4Params,
     c4_stage,
@@ -93,6 +113,20 @@ _WORD_TABLE_STEPS = frozenset(
         "FineWebQualityFilter",
     }
 )
+
+
+def _wire_u16(device: torch.device) -> bool:
+    """uint16 device uploads (see ``CompiledPipeline.__init__``).
+
+    ``TEXTBLAST_WIRE=u16|cp32`` pins it; the default is u16 on ``cuda``
+    (halves the host-to-device transfer) and cp32 on the CPU (no transfer
+    to save; the widen would be pure cost)."""
+    w = os.environ.get("TEXTBLAST_WIRE", "")
+    if w == "u16":
+        return True
+    if w == "cp32":
+        return False
+    return device.type == "cuda"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -196,12 +230,35 @@ def _new_counters() -> Dict[str, object]:
         # wrappers run their plain versions).
         "launches": {k: 0 for k in _launch_counts()},
         "device_rows": 0,  # real documents sent to the device, all phases
-        "host_fallback": 0,  # over-length, dictionary-script and overflow rows
+        "upload_bytes": 0,  # code points and lengths sent to the device
+        # Over-length, dictionary-script, astral and overflow rows; the
+        # leftover groups routed to the host oracle are counted apart.
+        "host_fallback": 0,
         "host_routed_dict_script": 0,
+        "host_routed_astral": 0,
         "host_overflow": 0,
-        # Host-clock seconds: upload + device functions + download per phase
-        # (the download waits for the device), host assembly, host routes.
-        "seconds": {"device": {}, "assemble": 0.0, "host_routes": 0.0},
+        "host_tail": 0,
+        # Host-clock seconds.  ``device``: per phase, upload + device
+        # function + download of each batch (the download waits for the
+        # device), on the dispatch thread when overlapped.  ``wait``: the
+        # caller's thread blocked on the oldest in-flight batch (0 serial).
+        # ``pack``: packing, summed over the pack workers.  ``drain``: the
+        # caller's thread draining the window's front (wait, assembly and
+        # host routes).  ``assemble``: host finalizers.  ``host_routes``:
+        # the host oracle on fallback and tail documents, ``host_tails`` the
+        # tail documents' share of it.  ``device_busy``:
+        # CUDA-event time from each batch's upload to its download on the
+        # stream that ran it, summed (0 on the CPU).
+        "seconds": {
+            "device": {},
+            "assemble": 0.0,
+            "host_routes": 0.0,
+            "host_tails": 0.0,
+            "pack": 0.0,
+            "wait": 0.0,
+            "drain": 0.0,
+            "device_busy": 0.0,
+        },
     }
 
 
@@ -252,10 +309,21 @@ class CompiledPipeline:
         ):
             self.phases = [list(range(len(self.device_steps)))]
 
+        # Wire format: BMP code points fit uint16 exactly, which halves the
+        # upload; documents holding supplementary-plane characters (emoji
+        # etc.) are routed to the host oracle instead (process_chunk), so
+        # decisions stay bit-identical and the route is counted.
+        self.wire_u16 = _wire_u16(self.device)
+
+        # Overlapped host pipeline (see process_chunk): depth of the device
+        # in-flight window and the pack-stage thread pool.
+        self._overlap = config.overlap
+
         self._host_executor = None
         self._host_suffix_executor = None
         self._fns: Dict[Tuple[int, int], Callable] = {}
         self.counters = _new_counters()
+        self._pack_lock = threading.Lock()
 
     # --- host executors -----------------------------------------------------
 
@@ -386,19 +454,39 @@ class CompiledPipeline:
         return self._fns[key]
 
     def dispatch_batch(self, batch: PackedBatch, phase: int = 0) -> Dict[str, torch.Tensor]:
-        """Upload one packed batch (int32) and run its (bucket, phase)
-        function; the returned stats stay on the device."""
+        """Upload one packed batch and run its (bucket, phase) function on
+        the current stream; the returned stats stay on the device.  The
+        upload is uint16 under :attr:`wire_u16` (widened to int32 on the
+        device before the function), int32 otherwise."""
         fn = self._fn_for(batch.max_len, phase)
-        cps = torch.from_numpy(np.ascontiguousarray(batch.cps, dtype=np.int32))
+        cps = np.ascontiguousarray(batch.cps)
+        if self.wire_u16:
+            # Astral rows were routed to the host oracle upstream
+            # (process_chunk); a slip here would truncate silently, so
+            # guard with one cheap vectorized check.
+            if int(cps.max(initial=0)) >= 0x10000:
+                raise RuntimeError(
+                    "astral codepoint reached the uint16 wire — "
+                    "routing invariant broken"
+                )
+            cps_h = torch.from_numpy(cps.astype(np.uint16))
+        else:
+            cps_h = torch.from_numpy(np.ascontiguousarray(cps, dtype=np.int32))
         lengths = torch.from_numpy(np.ascontiguousarray(batch.lengths, dtype=np.int32))
+        self.counters["upload_bytes"] += cps_h.nbytes + lengths.nbytes
         if self.device.type == "cuda":
-            cps = cps.pin_memory().to(self.device, non_blocking=True)
+            cps_d = cps_h.pin_memory().to(self.device, non_blocking=True)
             lengths = lengths.to(self.device)
+        else:
+            cps_d = cps_h
+        # The widen is the device's first op; every function computes in
+        # int32.
+        cps_d = cps_d.to(torch.int32) if self.wire_u16 else cps_d
         buckets = self.counters["batches_by_bucket"]
         buckets[batch.max_len] = buckets.get(batch.max_len, 0) + 1
         self.counters["device_rows"] += len(batch.docs)
         before = _launch_counts()
-        stats = fn(cps, lengths)
+        stats = fn(cps_d, lengths)
         launches = self.counters["launches"]
         for k, n in _launch_counts().items():
             launches[k] += n - before[k]
@@ -408,6 +496,34 @@ class CompiledPipeline:
     def fetch(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """Device stats -> host numpy arrays."""
         return {k: v.cpu().numpy() for k, v in stats.items()}
+
+    def run_batch(
+        self, batch: PackedBatch, phase: int = 0, stream=None
+    ) -> Tuple[Dict[str, np.ndarray], float, float]:
+        """Upload, device function and download of one batch:
+        ``(host stats, host seconds, device seconds)``.
+
+        On ``cuda`` the work runs on ``stream`` (the caller's current stream
+        when None), bracketed by two CUDA events whose elapsed time is the
+        device seconds; the stats come back in one batch of non-blocking
+        copies and one wait on the end event, which waits on that stream
+        only.  On the CPU the device seconds are 0."""
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            stats = self.fetch(self.dispatch_batch(batch, phase))
+            return stats, time.perf_counter() - t0, 0.0
+        with torch.cuda.device(self.device):
+            s = stream if stream is not None else torch.cuda.current_stream()
+            with torch.cuda.stream(s):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(s)
+                dev_stats = self.dispatch_batch(batch, phase)
+                host = {k: v.to("cpu", non_blocking=True) for k, v in dev_stats.items()}
+                end.record(s)
+                end.synchronize()
+        stats = {k: v.numpy() for k, v in host.items()}
+        return stats, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
     # --- host finalizers ----------------------------------------------------
     # Each maps the integer stats of one step to batch verdicts with the
@@ -908,59 +1024,259 @@ class CompiledPipeline:
                 return ProcessingOutcome.filtered(doc, decision.reason)
         return None
 
-    def process_chunk(self, docs: List[TextDocument]) -> Iterator[ProcessingOutcome]:
-        """Run one chunk of documents through every phase, one batch at a
-        time, repacking the survivors between phases (the device analogue
-        of the host executor's short-circuit)."""
-        current: List[TextDocument] = docs
-        routed: Dict[int, bool] = {}
-        route_fn = None
-        if self._route_dict_scripts:
-            from ..utils.cjk import has_dict_script
+    def _timed_pack(
+        self, docs: List[TextDocument], batch_size: int, max_len: int
+    ) -> PackedBatch:
+        """``pack_documents`` with the pack-stage wall clock added to
+        ``counters["seconds"]["pack"]`` (pack workers run it concurrently)."""
+        t0 = time.perf_counter()
+        try:
+            return pack_documents(docs, batch_size=batch_size, max_len=max_len)
+        finally:
+            dt = time.perf_counter() - t0
+            with self._pack_lock:
+                self.counters["seconds"]["pack"] += dt
 
-            def route_fn(doc: TextDocument) -> bool:
-                decision = has_dict_script(doc.content)
-                routed[id(doc)] = decision
-                return decision
+    def _packed_source(self, docs_iter, host_tail_max, route_fn, overlapped):
+        """The packer stage for one phase.
+
+        Serial: the grouping generator inline, packing on the caller's
+        thread.  Overlapped: the generator runs ahead on a prefetch thread
+        and each ``pack`` is a thread-pool future (the encode/scatter work
+        releases the GIL), so grouping+packing of batch i+1.. overlap the
+        caller's dispatch/assembly of batch i.  Either way items arrive in
+        the generator's order — the overlap changes timing, never sequence.
+
+        Returns ``(iterable of (batch_or_future, fallback_docs), close_fn)``.
+        """
+        kwargs = dict(
+            geometry=self.geometry,
+            host_tail_max=host_tail_max,
+            route_fn=route_fn,
+            overflow_flush=max(1, self._overlap.overflow_flush),
+        )
+        if not overlapped:
+            gen = iter_packed_batches(docs_iter, pack_fn=self._timed_pack, **kwargs)
+            return gen, lambda: None
+        # One process-wide pool: pack work releases the GIL, and every
+        # caller resolves its own futures FIFO, so sharing changes no
+        # ordering.
+        pool = shared_pack_pool(max(1, self._overlap.pack_workers))
+
+        def submit(docs, batch_size, max_len):
+            return pool.submit(
+                self._timed_pack, docs, batch_size=batch_size, max_len=max_len
+            )
+
+        gen = iter_packed_batches(docs_iter, pack_fn=submit, **kwargs)
+        pf = prefetch_iter(
+            gen, depth=max(2, self._overlap.pack_workers + 1), block=1
+        )
+        return pf, pf.close
+
+    def process_chunk(self, docs: List[TextDocument]) -> Iterator[ProcessingOutcome]:
+        """Run one chunk of documents through every phase, repacking the
+        survivors between phases (device-side short-circuit).
+
+        Batches ride a FIFO in-flight window ``pipeline_depth`` deep: the
+        dispatch thread runs batches i+1..i+K on the device while this
+        thread assembles batch i and runs the host routes.  Outcomes are
+        emitted in the strict FIFO order of the packer's output items at
+        EVERY depth — the window moves the waits, never the sequence — so
+        serial (``TEXTBLAST_NO_OVERLAP=1`` or ``overlap.enabled: false``)
+        and overlapped runs produce identical outcome streams by
+        construction.  The dispatch thread ends with the chunk, with the
+        generator's close and on any error; an error raised on it reaches
+        the caller when its batch is the oldest in the window.
+        """
+        debug = os.environ.get("TEXTBLAST_PHASE_DEBUG") == "1"
+        overlapped = (
+            self._overlap.enabled and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1"
+        )
+        depth = max(1, self._overlap.pipeline_depth) if overlapped else 1
+        counters = self.counters
+        secs = counters["seconds"]
+        current: List[TextDocument] = docs
+        # Routing decisions recorded at route_fn time (the packer calls
+        # route_fn once per non-over-length doc): the cause, or None.  The
+        # fallback classification below reuses them.
+        routed: Dict[int, Optional[str]] = {}
+        _host_routed = None
+        if self._route_dict_scripts or self.wire_u16:
+            from ..utils.cjk import has_astral, has_dict_script
+
+            route_dict = self._route_dict_scripts
+            route_astral = self.wire_u16
+
+            def _host_routed(doc: TextDocument) -> bool:
+                if route_dict and has_dict_script(doc.content):
+                    cause = "dict_script"
+                elif route_astral and has_astral(doc.content):
+                    cause = "astral"
+                else:
+                    cause = None
+                routed[id(doc)] = cause
+                return cause is not None
 
         over_length = self.buckets[-1] - PACK_MARGIN
-        for phase in range(len(self.phases)):
-            survivors: List[TextDocument] = []
-            # Every packable document runs on the device, leftover groups
-            # as small batches; only over-length and dictionary-script
-            # documents (phase 0) come back as fallback.
-            source = iter_packed_batches(
-                iter(current),
-                geometry=self.geometry,
-                route_fn=route_fn if phase == 0 else None,
-            )
-            secs = self.counters["seconds"]
-            for batch, fallback in source:
-                if batch is not None:
-                    t0 = time.perf_counter()
-                    stats = self.fetch(self.dispatch_batch(batch, phase))
-                    t1 = time.perf_counter()
-                    outcomes, alive = self.assemble_phase(batch, stats, phase)
-                    t2 = time.perf_counter()
-                    secs["device"][phase] = secs["device"].get(phase, 0.0) + (t1 - t0)
-                    secs["assemble"] += t2 - t1
-                    survivors.extend(alive)
-                    yield from outcomes
+        dispatcher = _DispatchThread(self) if overlapped else None
+        try:
+            for phase in range(len(self.phases)):
                 t0 = time.perf_counter()
-                routed_out = []
-                for doc in fallback:
-                    assert routed.get(id(doc), False) or len(doc.content) > over_length
-                    self.counters["host_fallback"] += 1
-                    if routed.get(id(doc), False):
-                        self.counters["host_routed_dict_script"] += 1
-                    outcome = self._host_outcome(doc)
-                    if outcome is not None:
-                        routed_out.append(outcome)
-                secs["host_routes"] += time.perf_counter() - t0
-                yield from routed_out
-            current = survivors
-            if not current:
-                break
+                n_in, n_batches = len(current), 0
+                survivors: List[TextDocument] = []
+                # FIFO window entries: ("batch", (batch, pending)) with
+                # pending the dispatch thread's future (overlapped) or the
+                # finished result (serial), or ("host", docs) fallback
+                # groups awaiting their host-oracle pass.  ``inflight``
+                # counts batch entries only.
+                window: deque = deque()
+                inflight = 0
+                # Host-oracle threshold for leftover groups: the first
+                # phase's function is cheap (it exists to kill docs early),
+                # so the device wins even for small groups; later phases
+                # carry the expensive statistics and the (bit-exact) host
+                # oracle wins below ~half a batch.  TEXTBLAST_HOST_TAILS=off
+                # keeps tails on the device (the parity suites use it so
+                # the device decides every doc).  Per bucket: the cutoff
+                # tracks each bucket's own row budget.
+                if os.environ.get("TEXTBLAST_HOST_TAILS") != "off":
+                    div = 16 if phase == 0 else 2
+                    host_tail_max = {
+                        b: self.geometry.batch_for(b) // div
+                        for b in self.geometry.buckets
+                    }
+                else:
+                    host_tail_max = 0
+                # Phase 0 only: later phases' survivors already passed it.
+                route = _host_routed if phase == 0 else None
+
+                def _process_fallback(fallback_docs):
+                    outs = []
+                    for doc in fallback_docs:
+                        # Over-length and routed (dict-script/astral) docs
+                        # are genuine fallbacks; leftover tail groups are
+                        # deliberate routing — counted apart.
+                        cause = routed.get(id(doc)) if route is not None else None
+                        tail = cause is None and len(doc.content) <= over_length
+                        if tail:
+                            counters["host_tail"] += 1
+                        else:
+                            counters["host_fallback"] += 1
+                            if cause is not None:
+                                counters[f"host_routed_{cause}"] += 1
+                        ta = time.perf_counter()
+                        outcome = self._host_outcome(doc)
+                        dt = time.perf_counter() - ta
+                        secs["host_routes"] += dt
+                        if tail:
+                            secs["host_tails"] += dt
+                        if outcome is not None:
+                            outs.append(outcome)
+                    return outs
+
+                def _drain_front():
+                    nonlocal inflight
+                    kind, payload = window.popleft()
+                    ta = time.perf_counter()
+                    if kind == "batch":
+                        inflight -= 1
+                        batch, pending = payload
+                        if isinstance(pending, Future):
+                            stats, host_s, dev_s = pending.result()
+                            secs["wait"] += time.perf_counter() - ta
+                        else:
+                            stats, host_s, dev_s = pending
+                        secs["device"][phase] = secs["device"].get(phase, 0.0) + host_s
+                        secs["device_busy"] += dev_s
+                        tb = time.perf_counter()
+                        outcomes, alive = self.assemble_phase(batch, stats, phase)
+                        secs["assemble"] += time.perf_counter() - tb
+                        survivors.extend(alive)
+                    else:
+                        outcomes = _process_fallback(payload)
+                    secs["drain"] += time.perf_counter() - ta
+                    return outcomes
+
+                src, src_close = self._packed_source(
+                    iter(current),
+                    host_tail_max=host_tail_max,
+                    route_fn=route,
+                    overlapped=overlapped,
+                )
+                try:
+                    for item, fallback in src:
+                        if item is not None:
+                            # Overlapped items are pack futures; resolving
+                            # here keeps FIFO order (futures complete out of
+                            # order, but we only ever wait on the oldest).
+                            batch = item.result() if isinstance(item, Future) else item
+                            n_batches += 1
+                            if dispatcher is not None:
+                                pending = dispatcher.submit(batch, phase)
+                            else:
+                                pending = self.run_batch(batch, phase)
+                            window.append(("batch", (batch, pending)))
+                            inflight += 1
+                        if fallback:
+                            window.append(("host", fallback))
+                        # Host groups at the front never block on the
+                        # device — draining them early IS the read/post
+                        # overlap; batch entries drain once more than
+                        # ``depth`` are in flight.
+                        while window and (window[0][0] == "host" or inflight > depth):
+                            yield from _drain_front()
+                    while window:
+                        yield from _drain_front()
+                finally:
+                    src_close()
+                if debug:
+                    print(
+                        f"[phase {phase}] docs={n_in} batches={n_batches} "
+                        f"survivors={len(survivors)} depth={depth} "
+                        f"{time.perf_counter() - t0:.2f}s "
+                        f"(wait {secs['wait']:.2f}s drain {secs['drain']:.2f}s)",
+                        flush=True,
+                    )
+                current = survivors
+                if not current:
+                    break
+        finally:
+            if dispatcher is not None:
+                dispatcher.close()
+
+
+class _DispatchThread:
+    """The window's dispatch stage: one thread that runs
+    :meth:`CompiledPipeline.run_batch` for each submitted batch, in
+    submission order, on one CUDA stream of its own (no stream on the CPU).
+
+    The phase functions wait on the device inside (``.any()`` gates, the
+    dup walk's step count) and the download waits for it, so a stream
+    issued from the caller's thread would overlap nothing: the thread
+    takes those waits instead.  One thread keeps launches in order and the
+    launch counters exact, and no device tensor crosses threads.  A failed
+    launch or build raises in the batch's future; nothing reruns elsewhere.
+    """
+
+    def __init__(self, pipeline: CompiledPipeline) -> None:
+        self._pipe = pipeline
+        self._stream = (
+            torch.cuda.Stream(device=pipeline.device)
+            if pipeline.device.type == "cuda"
+            else None
+        )
+        self._pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="textblast-dispatch"
+        )
+
+    def submit(self, batch: PackedBatch, phase: int) -> Future:
+        return self._pool.submit(self._pipe.run_batch, batch, phase, self._stream)
+
+    def close(self) -> None:
+        """Cancel the batches not started, wait for the running one and
+        join the thread."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 _EVALS = {

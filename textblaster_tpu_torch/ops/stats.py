@@ -1352,7 +1352,9 @@ def _find_all_dup_bytes_batched(jobs) -> Dict[str, torch.Tensor]:
         acc = acc + torch.where(hit, gb_c, 0)
         skip = torch.where(hit, n_vec - 1, torch.clamp(skip - 1, min=0))
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        # The stream this walk ran on only: a device-wide sync would also
+        # wait on other streams' work.
+        torch.cuda.current_stream(dev).synchronize()
     DUP_WALK["calls"] += 1
     DUP_WALK["steps"] += steps
     DUP_WALK["seconds"] += time.perf_counter() - t_start

@@ -1,7 +1,7 @@
 """Orchestration: feed documents in, aggregate outcomes out.
 
-Copy of the JAX package's ``orchestration.py`` without its metrics,
-dead-letter and threaded-writer hooks (those layers are not ported yet).
+Copy of the JAX package's ``orchestration.py`` without its metrics and
+dead-letter hooks (those layers are not ported yet).
 
 TPU-native re-design of the reference's producer/worker split
 (``/root/reference/src/producer_logic.rs``, ``worker_logic.rs``): there is no
@@ -20,6 +20,7 @@ are the reference's exactly:
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 
@@ -52,6 +53,10 @@ class AggregationResult:
     filtered: int = 0
     errors: int = 0
     read_errors: int = 0
+    #: Host-clock seconds of the Parquet stages, on whichever thread ran
+    #: them: ``write`` (both writers' ``write_batch`` and ``close``) and
+    #: ``read`` (the reader's, where the runner measured it).
+    seconds: dict = field(default_factory=lambda: {"read": 0.0, "write": 0.0})
 
 
 def read_documents(
@@ -124,11 +129,18 @@ def aggregate_results_from_stream(
     excluded_file: str,
     published_count: Optional[int] = None,
     progress: Optional[Callable[[AggregationResult], None]] = None,
+    write_queue: int = 0,
 ) -> AggregationResult:
     """Route outcomes to the kept/excluded Parquet pair
     (producer_logic.rs:109-196).  Broker-independent: accepts any iterable of
     outcomes — the seam the reference's fake-stream tests rely on
     (producer_tests.rs:324-573).
+
+    ``write_queue`` > 0 moves the actual Parquet writes onto a writer
+    thread behind a bounded FIFO queue that deep (the overlapped pipeline's
+    writer stage).  Batch boundaries and order are unchanged, so the files
+    are byte-identical either way; a write error surfaces at the next
+    ``write_batch`` or at close instead of at the failing call.
     """
     import os
 
@@ -137,10 +149,18 @@ def aggregate_results_from_stream(
         if parent:
             os.makedirs(parent, exist_ok=True)
 
-    out_writer = ParquetWriter(output_file)
-    excl_writer = ParquetWriter(excluded_file)
-
     result = AggregationResult()
+    timed = (
+        _TimedWriter(ParquetWriter(output_file)),
+        _TimedWriter(ParquetWriter(excluded_file)),
+    )
+    out_writer, excl_writer = timed
+    if write_queue > 0:
+        from .utils.overlap import ThreadedWriter
+
+        out_writer = ThreadedWriter(out_writer, max_queue=write_queue)
+        excl_writer = ThreadedWriter(excl_writer, max_queue=write_queue)
+
     out_batch: list[TextDocument] = []
     excl_batch: list[TextDocument] = []
 
@@ -197,6 +217,7 @@ def aggregate_results_from_stream(
             guarded(lambda: excl_writer.write_batch(excl_batch))
         guarded(out_writer.close)
         guarded(excl_writer.close)
+        result.seconds["write"] = sum(w.seconds for w in timed)
         if teardown_error is not None:
             if primary is None:
                 raise teardown_error
@@ -207,3 +228,27 @@ def aggregate_results_from_stream(
             )
 
     return result
+
+
+class _TimedWriter:
+    """A Parquet writer that sums the host-clock seconds of its
+    ``write_batch`` and ``close`` calls in :attr:`seconds` (one thread at a
+    time runs them: the caller's, or its writer thread)."""
+
+    def __init__(self, inner: ParquetWriter) -> None:
+        self._inner = inner
+        self.seconds = 0.0
+
+    def write_batch(self, docs) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._inner.write_batch(docs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+    def close(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._inner.close()
+        finally:
+            self.seconds += time.perf_counter() - t0

@@ -10,7 +10,9 @@ a time — the parity baseline).
 from __future__ import annotations
 
 import logging
-from typing import Optional, Sequence
+import os
+import time
+from typing import Iterable, Iterator, List, Optional, Sequence
 
 from .config.pipeline import PipelineConfig
 from .orchestration import (
@@ -22,6 +24,7 @@ from .orchestration import (
 from .ops.packing import DEFAULT_BUCKETS
 from .ops.pipeline import CompiledPipeline, process_documents_device
 from .pipeline_builder import build_pipeline_from_config
+from .utils.overlap import prefetch_iter
 
 logger = logging.getLogger(__name__)
 
@@ -43,35 +46,84 @@ def run_pipeline(
     pipeline: Optional[CompiledPipeline] = None,
 ) -> AggregationResult:
     """Process one Parquet shard.  ``device`` defaults to ``cuda``; pass a
-    prebuilt ``pipeline`` to read its counters afterwards."""
+    prebuilt ``pipeline`` to read its counters afterwards.
+
+    The device backend overlaps by default (``config.overlap``): the
+    reader runs ahead on its own thread, the pipeline keeps
+    ``pipeline_depth`` batches in flight on its dispatch thread, and the
+    kept/excluded writers drain on writer threads.  Every stage is strict
+    FIFO, so the files are byte-identical to the serial path's
+    (``overlap.enabled: false`` or ``TEXTBLAST_NO_OVERLAP=1``)."""
     read_errors = [0]
+    read_seconds = [0.0]
 
     def on_read_error(err) -> None:
         read_errors[0] += 1
 
-    docs = read_documents(
-        input_file, text_column=text_column, id_column=id_column,
-        batch_size=read_batch_size,
+    if backend == "device" and pipeline is None:
+        pipeline = CompiledPipeline(
+            config,
+            buckets=tuple(buckets) if buckets else DEFAULT_BUCKETS,
+            batch_size=device_batch,
+            device=device,
+        )
+    docs = _timed_iter(
+        read_documents(
+            input_file, text_column=text_column, id_column=id_column,
+            batch_size=read_batch_size,
+        ),
+        read_seconds,
     )
-    if backend == "device":
-        if pipeline is None:
-            pipeline = CompiledPipeline(
-                config,
-                buckets=tuple(buckets) if buckets else DEFAULT_BUCKETS,
-                batch_size=device_batch,
-                device=device,
+    oc = config.overlap
+    overlapped = (
+        backend == "device"
+        and oc.enabled
+        and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1"
+    )
+    if overlapped:
+        docs = prefetch_iter(
+            docs, depth=oc.read_ahead, block=max(64, read_batch_size // 4)
+        )
+    outcomes = None
+    try:
+        if backend == "device":
+            outcomes = process_documents_device(
+                config, docs, on_read_error=on_read_error, pipeline=pipeline
             )
-        outcomes = process_documents_device(
-            config, docs, on_read_error=on_read_error, pipeline=pipeline
+        elif backend == "host":
+            outcomes = process_documents_host(
+                build_pipeline_from_config(config), docs, on_read_error=on_read_error
+            )
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+        result = aggregate_results_from_stream(
+            outcomes,
+            output_file=output_file,
+            excluded_file=excluded_file,
+            write_queue=oc.write_queue if overlapped else 0,
         )
-    elif backend == "host":
-        outcomes = process_documents_host(
-            build_pipeline_from_config(config), docs, on_read_error=on_read_error
-        )
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
-    result = aggregate_results_from_stream(
-        outcomes, output_file=output_file, excluded_file=excluded_file
-    )
+    finally:
+        # Stop the pipeline's dispatch thread and the read-ahead thread on
+        # every exit path, not when a traceback lets go of the generator.
+        if outcomes is not None:
+            outcomes.close()
+        if overlapped:
+            docs.close()
     result.read_errors = read_errors[0]
+    result.seconds["read"] = read_seconds[0]
     return result
+
+
+def _timed_iter(items: Iterable, acc: List[float]) -> Iterator:
+    """``items`` with the host-clock seconds spent producing them added to
+    ``acc[0]`` (on whichever thread iterates)."""
+    it = iter(items)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            acc[0] += time.perf_counter() - t0
+            return
+        acc[0] += time.perf_counter() - t0
+        yield item
