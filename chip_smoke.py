@@ -9,7 +9,9 @@ Phases (any failure exits non-zero without the final result line):
    with code 2 when CUDA is not available or the port is not beside this
    script.
 2. Build: compiles ``textblaster_tpu_torch/csrc/*.cu`` with ``nvcc``
-   (``sm_90a``), one compiler per source, all at once.
+   (``sm_90a``), one compiler per source, all at once; the runtime's names
+   of the CUDA errors the classifier tells apart must be the kernel
+   wrappers' (``kernels/build.py`` ``CUDA_ERRORS``).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, with ``torch.equal`` (exact: every value is int32), at the
    shapes the main path gives it: ``affine_scan`` (k = 1, 2) and
@@ -36,7 +38,10 @@ Phases (any failure exits non-zero without the final result line):
    included); and the plain version.  The per-scan kernels are timed in
    every variant the main path launches (k = 1, 2; 4 and 5 states).  ``sort2`` also at edge widths (1 .. 16384 keys,
    ragged) on 1, 7 and 320 rows; ``chain_scan`` also on 600 short rows
-   ([600, 256]) and with a ragged cluster ([64, 5000]).
+   ([600, 256]) and with a ragged cluster ([64, 5000]).  The split rung's
+   half batches (32 rows a job) are checked too: the per-scan kernels at
+   32768/65536, ``sort2`` at 32/64/128/160 rows, ``fused_scan`` and every
+   chain site's program on 32-row batches.
 4. Main path: a seeded synthetic Danish/English corpus of >= 20,000
    documents whose lengths fill all five default buckets is written to
    Parquet and run through the port's ``run`` entry point on ``cuda`` with
@@ -72,7 +77,26 @@ Phases (any failure exits non-zero without the final result line):
    variant the run launched them at), and per kernel the sum of
    launches x (kernel ms - bound ms), the device time the kernel loses on
    the main path against its bound.
-6. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+6. Fault phase: the degradation ladder, the breaker and the watchdog,
+   each run with zero backoff and a breaker threshold of 2 and held to a
+   fault-free run of the same documents (kept and excluded rows equal by
+   id, every column): over the first 2,000 documents a fault-free run
+   writing ``--errors-file`` (a well-formed empty file), a retry run
+   (``device.execute`` raises ``OSError`` twice at the run's last dispatch:
+   one retry) and a split run (five times: the batch exhausts its retries
+   and splits; every shape the halves launched that the fault-free run did
+   not must have been held to its plain version); over the first 500 an
+   outage (every dispatch fails: every document on the host rung, the
+   breaker trips once); over the first 2,000 at depth 3 an injected hang
+   twice under a 0.5 s stage deadline; over the documents longer than
+   32,768 characters (only the 65536 bucket) a real out-of-memory run, the
+   allocator capped before each batch between the half batch's and the
+   full batch's peak of its phase (measured in two pilot runs), where
+   every full batch must split and no document reach the host rung; and
+   a fatal ``ValueError`` that must propagate with no dispatch thread
+   left.  Each run prints docs/s beside its fault-free run's, the ladder
+   and watchdog counters and the launches at the split rows.
+7. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -498,6 +522,26 @@ def chain_cost(passes):
     return n_bytes, ops
 
 
+def check_sort2(rng, rows, width, dev) -> int:
+    """``sort2`` against its plain version on seeded keys of ``[rows,
+    width]`` (ties in the first key); fails on any difference, else returns
+    the largest absolute difference (0)."""
+    import numpy as np
+    import torch
+
+    from textblaster_tpu_torch.ops import sort
+
+    k1 = torch.from_numpy(rng.integers(-1000, 1000, size=(rows, width)).astype(np.int32)).to(dev)
+    k2 = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(rows, width)).astype(np.int32)).to(dev)
+    got = sort.sort2(k1, k2)
+    torch.cuda.synchronize()
+    want = sort.sort2_plain(k1, k2)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"sort2 differs from its plain version at {[rows, width]}")
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
 def kernel_phase(corpus):
     """Exactness at every main-path shape, then timings per shape; the chain
     sites' programs are built from ``corpus`` documents."""
@@ -540,6 +584,9 @@ def kernel_phase(corpus):
     srng = np.random.default_rng(SEED + 2)
     scan_widths = [1, 31, 32, 511, 512, 513, 2047, 2048, 8192, 8193, 16384, 32768, 65536, 70000]
     scan_shapes = [(r, n) for n in scan_widths for r in (1, 7, 64, 65)] + [(37, 1000)]
+    # The fault phase's split rung: half batches (32 rows) at the buckets
+    # the per-scan kernels serve.
+    scan_shapes += [(32, n) for n in (32768, 65536)]
     for shape in scan_shapes:
         m, a1, a2 = (torch.from_numpy(srng.integers(-(2**31), 2**31, size=shape, dtype=np.int64)
                                       .astype(np.int32)).to(dev) for _ in range(3))
@@ -571,15 +618,12 @@ def kernel_phase(corpus):
     sort_shapes += [(r, w) for r in (256, 320) for w in (256, 512, 2048, 8192, 16384)]
     sort_shapes += [(r, w) for r in (64, 128) for w in (32768, 65536, 1536)]
     sort_shapes += [(r, w) for r in (1, 7, 320) for w in (1, 3, 255, 257, 1025, 2049, 16383)]
+    # The split rung's half batches: 32 rows a job (1, 2, 4 and 5 jobs).
+    sort_shapes += [(r, w) for r in (32, 64, 128, 160) for w in (128, 256, 512, 1024, 2048,
+                                                                 4096, 8192, 16384)]
+    sort_shapes += [(32, w) for w in (1536, 32768, 65536)]
     for rows, width in sort_shapes:
-        k1 = torch.from_numpy(rng.integers(-1000, 1000, size=(rows, width)).astype(np.int32)).to(dev)
-        k2 = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(rows, width)).astype(np.int32)).to(dev)
-        got = sort.sort2(k1, k2)
-        torch.cuda.synchronize()
-        want = sort.sort2_plain(k1, k2)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"sort2 differs from its plain version at {[rows, width]}")
-        errs["sort2"] = max(errs["sort2"], max_err(got, want))
+        errs["sort2"] = max(errs["sort2"], check_sort2(rng, rows, width, dev))
     # fused_scan: every call site's group list and the generic lists, at the
     # fused buckets, beyond the gate (any width works) and a ragged shape;
     # then its edges: one and zero lanes in both emit modes, 1, 7 and 65
@@ -587,7 +631,10 @@ def kernel_phase(corpus):
     # (scalar accesses) at ragged widths.
     errs["fused_scan"] = 0
 
+    fused_checked = set()
+
     def check_fused(label, groups):
+        fused_checked.add(tuple(groups[0]["xs"][0].shape))
         got = scan.fused_scan(groups)
         torch.cuda.synchronize()
         want = scan.fused_scan_plain(groups)
@@ -599,6 +646,7 @@ def kernel_phase(corpus):
             errs["fused_scan"] = max(errs["fused_scan"], max_err(g, w))
 
     fused_shapes = [(64, n) for n in (512, 2048, 8192, 16384, 32768, 65536)] + [(37, 1000)]
+    fused_shapes += [(32, n) for n in (512, 2048, 8192)]  # the split rung's halves
     for shape in fused_shapes:
         for name, make in fused_site_lists(full_range, packed_maps_, shape).items():
             check_fused(f"list {name} at {list(shape)}", make())
@@ -627,6 +675,7 @@ def kernel_phase(corpus):
     # width the chain takes.
     errs["chain_scan"] = 0
     text_shapes = [(64, 512), (64, 2048), (64, 8192), (37, 1000), (64, 32768), (64, 65536)]
+    text_shapes += [(32, n) for n in (512, 2048, 8192, 32768, 65536)]  # the split rung's halves
     generic_shapes = [(64, 512), (64, 2048), (64, 8192), (64, 16384), (37, 1000), (600, 256),
                       (64, 5000)]
     sites, chain_widths, site_progs = set(), set(), {}
@@ -832,7 +881,12 @@ def kernel_phase(corpus):
     timers = {"sort2": lambda b, n, _: time_sort(b, n),
               "affine_scan": lambda b, n, v: time_scan("affine_scan", b, n, v),
               "dfa_scan": lambda b, n, v: time_scan("dfa_scan", b, n, v)}
-    return errs, rep, per_shape, timers
+    # (rows, width) each kernel was held to its plain version at (every
+    # variant at each per-scan shape).
+    checked = {"affine_scan": set(scan_shapes), "dfa_scan": set(scan_shapes),
+               "sort2": {tuple(s) for s in sort_shapes}, "fused_scan": fused_checked,
+               "chain_scan": set(chain_widths)}
+    return errs, rep, per_shape, timers, checked
 
 
 def launch_losses(run, per_shape, timers):
@@ -849,7 +903,7 @@ def launch_losses(run, per_shape, timers):
     site_of = {"fused_scan": "fineweb"}
     rows, totals = [], {}
     launched = [(key[0], site_of.get(key[0]), key[1], key[2], key[3] if len(key) > 3 else None, c)
-                for key, c in run["shape_launches"]]
+                for key, c in run["shape_launches"] if key[0] != "chain_scan"]
     launched += [("chain_scan", s, 64, n, None, c) for (s, n), c in run["chain_shape_launches"]]
     for kernel, site, b, n, variant, count in sorted(
             launched, key=lambda x: (x[0], str(x[1]), x[2], x[3], x[4] or 0)):
@@ -906,15 +960,18 @@ def time_dup_walk():
 # --- main path ----------------------------------------------------------------
 
 
-def device_run(config, inp: str, work: str, tag: str, device: str):
+def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=None,
+               batch_size=None, prepare=None):
     """One run of the port's ``run`` entry point over ``inp``; every kernel
     launch counter and the dup-walk counters are set to 0 just before and
-    read just after."""
+    read just after.  ``prepare(pipeline)`` runs before the run."""
     from textblaster_tpu_torch.ops import scan, sort, stats
     from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
     from textblaster_tpu_torch.runner import run_pipeline
 
-    pipe = CompiledPipeline(config, device=device)
+    pipe = CompiledPipeline(config, device=device, batch_size=batch_size)
+    if prepare is not None:
+        prepare(pipe)
     if device == "cuda":
         import torch
 
@@ -927,7 +984,8 @@ def device_run(config, inp: str, work: str, tag: str, device: str):
               scan.CHAIN_SHAPE_LAUNCHES):
         d.clear()
     t0 = time.perf_counter()
-    res = run_pipeline(config, inp, *out, backend="device", pipeline=pipe)
+    res = run_pipeline(config, inp, *out, backend="device", pipeline=pipe,
+                       errors_file=errors_file)
     if device == "cuda":
         torch.cuda.synchronize()
     dev_s = time.perf_counter() - t0
@@ -1108,6 +1166,322 @@ def main_path(device: str, rows, work: str):
     return summary
 
 
+# --- fault phase --------------------------------------------------------------
+
+FAULT_DOCS = 2000  # the retry, split and hang runs' documents
+OUTAGE_DOCS = 500  # the outage and fatal runs' documents
+HANG_DEADLINE_MIN_S = 0.5  # the hang run's least stage deadline
+#: Documents longer than this are the real out-of-memory run's: every one
+#: packs into the 65536 bucket, so only that bucket dispatches.
+OOM_MIN_CHARS = 32768
+#: The ladder and watchdog counters (the port's METRICS, JAX names).
+LADDER = ("resilience_retries_device_total", "resilience_retry_exhausted_total",
+          "resilience_ladder_split_total", "resilience_ladder_host_total",
+          "resilience_breaker_trips_total", "watchdog_stalls_total",
+          "watchdog_escalations_total")
+
+
+def fault_config(depth=None):
+    """The offline config with zero backoff and a breaker threshold of 2
+    (``pipeline_depth`` set when given)."""
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+
+    config = load_pipeline_config(CONFIG)
+    rc = config.resilience
+    rc.backoff_base_s = rc.backoff_max_s = 0.0
+    rc.breaker_threshold = 2
+    if depth is not None:
+        config.overlap.pipeline_depth = depth
+    return config
+
+
+def fault_run(config, inp, work, tag, arm=None, deadline=0.0, prepare=None, **kw):
+    """:func:`device_run` with ``device.execute`` armed by ``arm`` (the
+    injector's keywords) and the watchdog at ``deadline`` for the run only;
+    adds the ladder counters' deltas, the seam's fires and the slowest
+    batch that completed: its ``run_batch`` seconds on the dispatch thread
+    (what the ``device_fetch`` deadline bounds) and its CUDA-event
+    seconds."""
+    from textblaster_tpu_torch.resilience import FAULTS, WATCHDOG
+    from textblaster_tpu_torch.utils.metrics import METRICS
+
+    slowest = {"wall_s": 0.0, "device_s": 0.0}
+
+    def timed(pipe):
+        if prepare is not None:
+            prepare(pipe)
+        real = pipe.run_batch
+
+        def run_batch(batch, phase=0, stream=None):
+            out = real(batch, phase, stream)
+            slowest["wall_s"] = max(slowest["wall_s"], out[1])
+            slowest["device_s"] = max(slowest["device_s"], out[2])
+            return out
+
+        pipe.run_batch = run_batch
+
+    before = {k: METRICS.get(k) for k in LADDER}
+    FAULTS.reset()
+    if arm is not None:
+        FAULTS.inject("device.execute", **arm)
+    WATCHDOG.configure(deadline)
+    try:
+        run = device_run(config, inp, work, tag, "cuda", prepare=timed, **kw)
+        run["fired"] = FAULTS.fired("device.execute")
+    finally:
+        FAULTS.reset()
+        WATCHDOG.reset()
+    run["ladder"] = {k: METRICS.get(k) - before[k] for k in LADDER}
+    run["slowest_batch"] = slowest
+    return run
+
+
+def read_rows(path):
+    """id -> the whole row (every column) of a kept or excluded file."""
+    import pyarrow.parquet as pq
+
+    return {r["id"]: r for r in pq.read_table(path).to_pylist()}
+
+
+def _launched(run):
+    """{(kernel, rows, width): launches} of a run, summed over variants."""
+    out = {}
+    for key, n in run["shape_launches"]:
+        k = (key[0], key[1], key[2])
+        out[k] = out.get(k, 0) + n
+    return out
+
+
+def fault_phase(rows, work, checked):
+    """The degradation ladder, the breaker and the watchdog on the card:
+    six fault runs, each held to a fault-free run of the same documents
+    (kept and excluded rows equal by id, every column).  Every shape that
+    a split rung launched, and that the fault-free run did not, must be
+    among the shapes the kernel phase held to the plain versions
+    (``checked``); ``sort2`` shapes that are not are checked here."""
+    import gc
+    import threading
+
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from textblaster_tpu_torch.resilience import DEADLETTER_SCHEMA, FAULTS
+
+    os.makedirs(work, exist_ok=True)
+    inputs = {}
+    for name, part in (("fault", rows[:FAULT_DOCS]), ("outage", rows[:OUTAGE_DOCS]),
+                       ("oom", [r for r in rows if len(r[1]) > OOM_MIN_CHARS])):
+        inputs[name] = os.path.join(work, f"corpus_{name}.parquet")
+        write_parquet(inputs[name], part)
+    config = fault_config()
+    summary, lines = {}, []
+
+    def same_rows(run, ref):
+        for i in (0, 1):
+            if read_rows(run["outputs"][i]) != read_rows(ref["outputs"][i]):
+                fail(f"fault run {run['schedule']} and its fault-free run "
+                     f"{ref['schedule']} differ in {os.path.basename(run['outputs'][i])}")
+
+    def split_launches(run, ref):
+        new = {k: v for k, v in _launched(run).items() if k not in _launched(ref)}
+        srng = np.random.default_rng(SEED + 5)
+        for kernel, r, w in new:
+            if (r, w) in checked[kernel]:
+                continue
+            if kernel != "sort2":
+                fail(f"{kernel} launched at [{r}, {w}] by a split rung, a shape the kernel "
+                     "phase did not hold to its plain version")
+            check_sort2(srng, r, w, torch.device("cuda"))
+            checked["sort2"].add((r, w))
+        return {f"{k}[{r},{w}]": v for (k, r, w), v in sorted(new.items())}
+
+    def report(tag, run, ref, **extra):
+        run["docs_per_s_fault_free"] = ref["device_docs_per_s"]
+        summary[tag] = {**{k: run[k] for k in ("received", "device_seconds",
+                                               "device_docs_per_s", "ladder", "fired",
+                                               "batches_by_bucket", "host_routes",
+                                               "slowest_batch")},
+                        "fault_free_docs_per_s": ref["device_docs_per_s"],
+                        "fault_free_slowest_batch": ref["slowest_batch"], **extra}
+        line = (f"fault run {tag}: {run['received']} documents, {run['device_docs_per_s']:.2f} "
+                f"docs/s (fault-free {ref['device_docs_per_s']:.2f}), fires "
+                f"{run['fired']}, ladder {json.dumps(run['ladder'])}, slowest batch "
+                f"{json.dumps(run['slowest_batch'])} (fault-free "
+                f"{json.dumps(ref['slowest_batch'])})")
+        if extra:
+            line += ", " + json.dumps(extra)
+        print(line, flush=True)
+        lines.append(line)
+
+    # Fault-free runs of the fault runs' documents; the first writes
+    # --errors-file, which must be a well-formed empty dead-letter file.
+    errs = os.path.join(work, "fault_clean_errors.parquet")
+    clean = fault_run(config, inputs["fault"], work, "fault_clean", errors_file=errs)
+    t = pq.read_table(errs)
+    if t.num_rows != 0 or t.schema.names != list(DEADLETTER_SCHEMA.names):
+        fail(f"--errors-file of a fault-free run holds {t.num_rows} rows, columns "
+             f"{t.schema.names}")
+    if any(clean["ladder"].values()):
+        fail(f"a fault-free run moved the ladder: {clean['ladder']}")
+    # The retry and split faults land on the run's last dispatch, so that
+    # the ladder's own attempts take the next fires (an earlier batch's
+    # fire would go to the batches dispatched behind it in the window).
+    last = sum(clean["batches_by_bucket"].values()) - 1
+
+    retry = fault_run(config, inputs["fault"], work, "fault_retry",
+                      arm=dict(exc=OSError("injected device fault"), times=2, after_calls=last))
+    same_rows(retry, clean)
+    lad = retry["ladder"]
+    if (lad["resilience_retries_device_total"], lad["resilience_ladder_split_total"],
+            lad["resilience_ladder_host_total"]) != (1, 0, 0):
+        fail(f"retry run: ladder {lad}")
+    report("retry", retry, clean)
+
+    split = fault_run(config, inputs["fault"], work, "fault_split",
+                      arm=dict(exc=OSError("injected device fault"), times=5, after_calls=last))
+    same_rows(split, clean)
+    lad = split["ladder"]
+    if (lad["resilience_ladder_split_total"], lad["resilience_retry_exhausted_total"],
+            lad["resilience_ladder_host_total"]) != (1, 1, 0):
+        fail(f"split run: ladder {lad}")
+    new = split_launches(split, clean)
+    if not new:
+        fail("the split run launched nothing at the split rows")
+    report("split", split, clean, split_row_launches=new)
+
+    clean_small = fault_run(config, inputs["outage"], work, "fault_clean_outage")
+    outage = fault_run(config, inputs["outage"], work, "fault_outage",
+                       arm=dict(exc=OSError("injected device outage"), times=10**6))
+    same_rows(outage, clean_small)
+    lad = outage["ladder"]
+    # Every document the device would have taken went to the host rung:
+    # no batch ran on the card.
+    if (outage["device_rows"] != 0 or lad["resilience_ladder_host_total"] <= 0
+            or lad["resilience_breaker_trips_total"] != 1 or outage["fired"] >= 1000):
+        fail(f"outage run: ladder {lad}, fires {outage['fired']}, device rows "
+             f"{outage['device_rows']}")
+    report("outage", outage, clean_small,
+           device_rows_fault_free=clean_small["device_rows"])
+
+    # The hang run's deadline is twice the fault-free run's slowest batch
+    # on the dispatch thread, so that the two injected hangs are its only
+    # stalls: each is counted once, its batch redispatched, and nothing
+    # falls to the host rung.
+    hang_deadline = max(HANG_DEADLINE_MIN_S, 2 * clean["slowest_batch"]["wall_s"])
+    hang = fault_run(fault_config(depth=3), inputs["fault"], work, "fault_hang",
+                     arm=dict(kind="hang", times=2, after_calls=1), deadline=hang_deadline)
+    same_rows(hang, clean)
+    lad = hang["ladder"]
+    if (lad["watchdog_stalls_total"] != 2 or lad["resilience_ladder_host_total"]
+            or hang["fired"] != 2):
+        fail(f"hang run at deadline {hang_deadline} s: ladder {lad}, fires {hang['fired']}")
+    report("hang", hang, clean, depth=3, deadline_s=hang_deadline)
+
+    # Real out-of-memory: a pilot measures each phase's peak device memory
+    # per batch at the full rows and at the split rows; the run then caps
+    # the allocator before each batch (its cache emptied) a quarter of the
+    # way down from the full batch's peak to the half's, so every full
+    # batch runs out of memory and every half fits with room for the
+    # allocator's fragmentation.
+    peaks = {}
+
+    def record_peaks(pipe):
+        real = pipe.run_batch
+
+        def run_batch(batch, phase=0, stream=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = real(batch, phase, stream)
+            key = (phase, batch.batch_size)
+            peaks[key] = max(peaks.get(key, 0), torch.cuda.max_memory_allocated())
+            return out
+
+        pipe.run_batch = run_batch
+
+    def settle():
+        # The same device memory outside the batches in the three runs:
+        # earlier pipelines collected, the allocator's cache emptied.
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    settle()
+    clean_big = fault_run(config, inputs["oom"], work, "fault_clean_oom", prepare=record_peaks)
+    full = clean_big["batches_by_bucket"]
+    if set(full) != {"65536"}:
+        fail(f"the out-of-memory run's documents dispatched {full}")
+    full_rows = max(r for _, r in peaks)
+    half_rows = -(-((full_rows + 1) // 2) // 8) * 8
+    settle()
+    fault_run(config, inputs["oom"], work, "fault_pilot_half", batch_size=half_rows,
+              prepare=record_peaks)
+    total = torch.cuda.get_device_properties(0).total_memory
+    caps = {}
+    for phase in sorted({p for p, r in peaks if r == full_rows}):
+        lo, hi = peaks.get((phase, half_rows)), peaks[(phase, full_rows)]
+        if lo is None or lo >= hi:
+            fail(f"phase {phase}: peak {lo} bytes at {half_rows} rows, {hi} at {full_rows}")
+        caps[phase] = (hi - (hi - lo) / 4) / total
+    print(f"out-of-memory pilot: peak bytes by (phase, rows) "
+          f"{ {f'{p}/{r}': v for (p, r), v in sorted(peaks.items())} }, caps "
+          f"{ {p: round(c * total) for p, c in caps.items()} }", flush=True)
+
+    def capped(pipe):
+        real = pipe.run_batch
+
+        def run_batch(batch, phase=0, stream=None):
+            torch.cuda.empty_cache()
+            torch.cuda.set_per_process_memory_fraction(caps.get(phase, 1.0))
+            return real(batch, phase, stream)
+
+        pipe.run_batch = run_batch
+
+    settle()
+    try:
+        oom = fault_run(config, inputs["oom"], work, "fault_oom", prepare=capped)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    same_rows(oom, clean_big)
+    n_full = sum(full.values())
+    lad = oom["ladder"]
+    if lad["resilience_ladder_split_total"] < n_full or lad["resilience_ladder_host_total"]:
+        fail(f"out-of-memory run: ladder {lad} over {n_full} full batches")
+    report("oom", oom, clean_big, full_batches=n_full,
+           seconds_per_split=(oom["device_seconds"] - clean_big["device_seconds"])
+           / max(1, lad["resilience_ladder_split_total"]),
+           peak_bytes={f"{p}/{r}": v for (p, r), v in sorted(peaks.items())},
+           caps_bytes={str(p): c * total for p, c in caps.items()},
+           split_row_launches=split_launches(oom, clean_big))
+
+    # A fatal error propagates, and no dispatch thread outlives the run.
+    FAULTS.inject("device.execute", ValueError("injected fatal device fault"), times=10)
+    t0 = time.perf_counter()
+    try:
+        device_run(config, inputs["outage"], work, "fault_fatal", "cuda")
+    except ValueError as e:
+        if "injected fatal device fault" not in str(e):
+            raise
+    else:
+        fail("the fatal run did not raise")
+    finally:
+        fired = FAULTS.fired("device.execute")
+        FAULTS.reset()
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("textblast-dispatch")]
+    if alive or fired < 1:
+        fail(f"fatal run: dispatch threads {alive}, fires {fired}")
+    line = (f"fault run fatal: ValueError propagated after {time.perf_counter() - t0:.2f} s, "
+            f"fires {fired}, no dispatch thread left")
+    print(line, flush=True)
+    summary["fatal"] = {"fired": fired, "seconds": time.perf_counter() - t0}
+    summary["fault_free"] = {k: {"received": r["received"],
+                                 "docs_per_s": r["device_docs_per_s"],
+                                 "ladder": r["ladder"]}
+                             for k, r in (("fault", clean), ("outage", clean_small),
+                                          ("oom", clean_big))}
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1132,19 +1506,27 @@ def main() -> int:
     for lib, report in kb.ptxas_report.items():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         print(f"  ptxas {lib}: " + " | ".join(regs), flush=True)
+    kb.load("scan")
+    names = {code: kb.error_name(code) for code in kb.CUDA_ERRORS}
+    print(f"CUDA error names (the wrappers' messages): {names}", flush=True)
+    if any(names[c][0] != kb.CUDA_ERRORS[c][0] for c in names):
+        fail(f"the runtime names CUDA errors {names}, the wrappers' table {kb.CUDA_ERRORS}")
 
     t0 = time.perf_counter()
     rows = make_corpus(N_DOCS, SEED)
     print(f"corpus: {len(rows)} documents, {sum(len(r[1]) for r in rows)} chars, "
           f"{time.perf_counter() - t0:.1f} s to make", flush=True)
 
-    errs, rep, per_shape, timers = kernel_phase(rows)
+    errs, rep, per_shape, timers, checked = kernel_phase(rows)
     walk = time_dup_walk()
     print(f"dup walk (torch loop): {walk}", flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     summary = main_path("cuda", rows, work)
     losses = launch_losses(summary["chain"], per_shape, timers)
+    t0 = time.perf_counter()
+    faults = fault_phase(rows, work, checked)
+    print(f"fault phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {"affine_scan": "textblaster_tpu_torch/csrc/scan.cu",
                "dfa_scan": "textblaster_tpu_torch/csrc/scan.cu",
@@ -1174,7 +1556,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
-                   "main_path": summary,
+                   "main_path": summary, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -2,15 +2,17 @@
 
 The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
 ``run`` command that the port supports (``--pipeline-depth`` and
-``--no-overlap`` among them), spelled the same way, plus
-``--backend device|host`` and ``--device cuda|cpu`` (``cuda`` is the
-default; the run fails rather than fall back when CUDA is absent).
+``--no-overlap``, ``--errors-file`` and ``--stage-deadline-s`` among
+them), spelled the same way, plus ``--backend device|host`` and
+``--device cuda|cpu`` (``cuda`` is the default; the run fails rather than
+fall back when CUDA is absent).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -43,6 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Path to the output Parquet file")
     run.add_argument("-e", "--excluded-file", default="excluded.parquet",
                      help="Path to the excluded output Parquet file")
+    run.add_argument("--errors-file", default=None,
+                     help="Opt-in dead-letter Parquet file: every Error "
+                          "outcome and every unreadable/quarantined row "
+                          "lands here with step/reason/worker columns.  "
+                          "Default: no file (the reference's behavior — "
+                          "errored rows appear in neither output)")
     run.add_argument("--backend", choices=("device", "host"), default="device",
                      help="The device pipeline (device) or the host oracle (host)")
     run.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -59,6 +67,19 @@ def build_parser() -> argparse.ArgumentParser:
                           "overlap.pipeline_depth, 2).  Higher values hide "
                           "more host time behind device compute at the cost "
                           "of one packed batch of host memory each")
+    run.add_argument("--stage-deadline-s", type=float, default=None,
+                     metavar="S",
+                     help="Arm the stall watchdog: deadline-bound every "
+                          "host-side stage (device fetch, pack wait, "
+                          "write-behind queue, reader prefetch) at S "
+                          "seconds.  A stalled stage raises a typed "
+                          "StallError and escalates through the ordinary "
+                          "retry -> split -> host ladder, so hangs degrade "
+                          "instead of wedging the run.  0 (the default) "
+                          "disarms the watchdog entirely; scheduling-only — "
+                          "outputs are byte-identical with any value.  "
+                          "TEXTBLAST_STAGE_DEADLINE_S sets the same knob "
+                          "from the environment")
     run.add_argument("--no-overlap", action="store_true",
                      help="Disable the overlapped host pipeline (reader "
                           "thread, pack pool, in-flight window, writer "
@@ -102,6 +123,25 @@ def _cmd_run(args: argparse.Namespace) -> int:
                   file=sys.stderr)
             return 1
         config.overlap.pipeline_depth = args.pipeline_depth
+    if args.stage_deadline_s is not None:
+        if args.stage_deadline_s < 0:
+            print(f"Invalid --stage-deadline-s value: {args.stage_deadline_s}",
+                  file=sys.stderr)
+            return 1
+        config.resilience.stage_deadline_s = args.stage_deadline_s
+    elif os.environ.get("TEXTBLAST_STAGE_DEADLINE_S", "").strip():
+        try:
+            env_deadline = float(os.environ["TEXTBLAST_STAGE_DEADLINE_S"])
+        except ValueError:
+            print("Invalid TEXTBLAST_STAGE_DEADLINE_S value: "
+                  f"{os.environ['TEXTBLAST_STAGE_DEADLINE_S']!r}",
+                  file=sys.stderr)
+            return 1
+        if env_deadline < 0:
+            print(f"Invalid TEXTBLAST_STAGE_DEADLINE_S value: {env_deadline}",
+                  file=sys.stderr)
+            return 1
+        config.resilience.stage_deadline_s = env_deadline
     buckets = None
     if args.buckets:
         try:
@@ -112,8 +152,10 @@ def _cmd_run(args: argparse.Namespace) -> int:
             print(f"Invalid --buckets value: {args.buckets!r}", file=sys.stderr)
             return 1
 
+    from .resilience.watchdog import WATCHDOG
     from .runner import run_pipeline
 
+    WATCHDOG.configure(config.resilience.stage_deadline_s)
     start = time.perf_counter()
     result = run_pipeline(
         config,
@@ -126,6 +168,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         device=args.device,
         device_batch=args.device_batch,
         buckets=buckets,
+        errors_file=args.errors_file,
     )
     elapsed = time.perf_counter() - start
     if not args.quiet:

@@ -161,4 +161,9 @@ int tb_dfa_scan(const int32_t* fns, int32_t* out, int rows, int len, int n_state
   }
 }
 
+// The runtime's name and message for a CUDA error code, as every entry of
+// the port's libraries returns them (kernels/build.py check()).
+const char* tb_error_name(int err) { return cudaGetErrorName((cudaError_t)err); }
+const char* tb_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
 }  // extern "C"

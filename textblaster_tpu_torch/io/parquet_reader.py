@@ -33,6 +33,9 @@ import pyarrow.parquet as pq
 
 from ..data_model import TextDocument
 from ..errors import ConfigError, ParquetError, PipelineError, UnexpectedError
+from ..resilience.faults import FAULTS
+from ..resilience.retry import RetryPolicy
+from ..utils.metrics import METRICS
 from .base import BaseReader
 
 logger = logging.getLogger(__name__)
@@ -89,8 +92,15 @@ class _QuarantinedGroup:
 
 
 class ParquetReader(BaseReader):
-    def __init__(self, config: ParquetInputConfig) -> None:
+    def __init__(
+        self,
+        config: ParquetInputConfig,
+        retry_policy: Optional[RetryPolicy] = None,
+    ) -> None:
         self.config = config
+        # Every reader is guarded, with the default read policy when the
+        # caller gives none (run_pipeline gives the config's).
+        self.retry_policy = retry_policy or RetryPolicy()
 
     def _open(self) -> pq.ParquetFile:
         try:
@@ -112,22 +122,27 @@ class ParquetReader(BaseReader):
             )
 
     def _fetch_group(self, pf: pq.ParquetFile, group: int) -> pa.Table:
-        """One row group off disk (the JAX package wraps this seam in its
-        retry policy and fault injector; the port has no resilience layer
-        yet, so a failed read is reported once)."""
-        return pf.read_row_group(group)
+        """One row group off disk — the guarded read seam.  The fault site
+        fires *inside* the retried callable so chaos tests drive the retry
+        layer through real control flow."""
+        def fetch() -> pa.Table:
+            FAULTS.fire("read.batch")
+            return pf.read_row_group(group)
+
+        return self.retry_policy.run(fetch, seam="read")
 
     def _iter_group_batches(
         self, skip_rows: int = 0, on_quarantine=None
     ) -> Iterator[Union[pa.RecordBatch, _QuarantinedGroup]]:
-        """Record batches row-group by row-group.
+        """Record batches row-group by row-group, each group fetched under
+        the read RetryPolicy.
 
         ``skip_rows`` seeks past the first N rows without decoding them:
         fully-consumed row groups are never read (their ``num_rows`` come
         from the footer), and only the partially-consumed group is sliced —
         the row-group cursor the checkpoint subsystem resumes from.
 
-        A group that cannot be read is yielded as
+        A group that stays unreadable through the retry budget is yielded as
         a :class:`_QuarantinedGroup` when ``on_quarantine`` is truthy
         (reading continues at the next group); otherwise the error
         propagates as :class:`ParquetError`.
@@ -146,7 +161,7 @@ class ParquetReader(BaseReader):
             n_rows = md.row_group(g).num_rows
             try:
                 table = self._fetch_group(pf, g)
-            except Exception as e:  # noqa: BLE001
+            except Exception as e:  # noqa: BLE001 — budget already spent
                 if not on_quarantine:
                     if isinstance(e, ParquetError):
                         raise
@@ -158,6 +173,7 @@ class ParquetReader(BaseReader):
                 # group so item<->row bookkeeping stays exact.
                 lost = n_rows - skip_rows
                 skip_rows = 0
+                METRICS.inc("resilience_quarantined_rows_total", lost)
                 logger.error(
                     "Quarantined row group %d of '%s' (%d rows): %s",
                     g, self.config.path, lost, e,
@@ -174,7 +190,8 @@ class ParquetReader(BaseReader):
     def read_batches(self, skip_rows: int = 0) -> Iterator[pa.RecordBatch]:
         """Raw Arrow record batches (the zero-copy path for the TPU packer).
 
-        An unreadable row group raises :class:`ParquetError` here (use :meth:`read_documents` for
+        Reads are guarded by the retry policy; an unreadable row group
+        raises :class:`ParquetError` here (use :meth:`read_documents` for
         the quarantining form)."""
         yield from self._iter_group_batches(skip_rows=skip_rows)
 

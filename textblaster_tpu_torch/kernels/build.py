@@ -8,8 +8,9 @@ file under ``csrc/``, headers included, and the flags), so a changed source
 rebuilds and an unchanged one loads at once.  All sources compile concurrently, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module on
-machines that have no ``nvcc``.  :func:`load` is called by a kernel wrapper
-the first time it launches on a CUDA tensor.
+machines that have no ``nvcc``.  :func:`load` is called when a pipeline is
+set up on ``cuda`` and by a kernel wrapper the first time it launches on a
+CUDA tensor.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["SOURCES", "BuildError", "build", "check", "load", "nvcc_path"]
+__all__ = ["SOURCES", "BuildError", "CUDA_ERRORS", "build", "check", "error_name", "load", "nvcc_path"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -126,6 +127,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.tb_affine_scan.restype = i
         lib.tb_dfa_scan.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.tb_dfa_scan.restype = i
+        for fn in (lib.tb_error_name, lib.tb_error_string):
+            fn.argtypes = [i]
+            fn.restype = ctypes.c_char_p
     elif name == "sort":
         lib.tb_sort2.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.tb_sort2.restype = i
@@ -144,23 +148,57 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (building every source first if needed),
-    with every entry point's argument types declared — pointers and the
-    stream as ``c_void_p`` so none is cut to 32 bits."""
+    """The loaded library ``name`` (building and loading every source first
+    if needed), with every entry point's argument types declared — pointers
+    and the stream as ``c_void_p`` so none is cut to 32 bits.  Any failure
+    to build or load raises :class:`BuildError`, which the resilience
+    layer's classifier holds fatal: a run must not move to the host when a
+    kernel cannot be built."""
     lib: Optional[ctypes.CDLL] = _loaded.get(name)
     if lib is not None:
         return lib
     with _lock:
         if name not in _loaded:
-            paths = build()
-            for n, path in paths.items():
-                handle = ctypes.CDLL(path)
-                _declare(n, handle)
-                _loaded[n] = handle
+            try:
+                paths = build()
+                handles = {n: ctypes.CDLL(path) for n, path in paths.items()}
+                for n, handle in handles.items():
+                    _declare(n, handle)
+            except BuildError:
+                raise
+            except Exception as e:  # noqa: BLE001 — reported as a build failure
+                raise BuildError(f"could not build or load the kernels: {e!r}") from e
+            _loaded.update(handles)
         return _loaded[name]
 
 
+#: The runtime's names and messages of the CUDA errors that the resilience
+#: layer's classifier tells apart (resilience/retry.py): out of memory is
+#: retryable, the sticky errors are fatal.  Used when no library is loaded;
+#: a loaded library answers for every code (``tb_error_name``).
+CUDA_ERRORS: Dict[int, tuple] = {
+    2: ("cudaErrorMemoryAllocation", "out of memory"),
+    700: ("cudaErrorIllegalAddress", "an illegal memory access was encountered"),
+    702: ("cudaErrorLaunchTimeout", "the launch timed out and was terminated"),
+    710: ("cudaErrorAssert", "device-side assert triggered"),
+    719: ("cudaErrorLaunchFailure", "unspecified launch failure"),
+}
+
+
+def error_name(err: int) -> tuple:
+    """``(name, message)`` of CUDA error ``err``, from the runtime the
+    libraries link (:data:`CUDA_ERRORS`, else ``unknown``, when none is
+    loaded)."""
+    lib = _loaded.get("scan")
+    if lib is not None:
+        return lib.tb_error_name(err).decode(), lib.tb_error_string(err).decode()
+    return CUDA_ERRORS.get(err, ("unknown", "unknown CUDA error"))
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
+    """Raise if a C entry point returned a CUDA error code; the message
+    names the error, so that the classifier can tell an out-of-memory
+    error from a sticky one."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        name, msg = error_name(err)
+        raise RuntimeError(f"{what}: CUDA error {err} ({name}: {msg})")

@@ -29,27 +29,39 @@ FIFO order at every depth, so the serial path (``TEXTBLAST_NO_OVERLAP=1``,
 ``cuda`` (``TEXTBLAST_WIRE=u16|cp32`` pins the wire), with documents holding
 astral code points routed to the host oracle, and small leftover groups go
 to the host oracle (``TEXTBLAST_HOST_TAILS=off`` keeps them on the device).
-Not ported yet: C4BadWords on the device (it runs as a host step), the
-retry/split/host ladder, meshes and warmup.
+
+Each batch goes through the JAX package's degradation ladder
+(:meth:`CompiledPipeline._execute_packed`): a transient device fault
+(CUDA out-of-memory, an I/O error, a watchdog stall) retries the batch
+under the ``resilience:`` RetryPolicy, then splits it in half, then reruns
+its documents on the host oracle, and a circuit breaker sends the run to
+the host oracle after ``breaker_threshold`` batches in a row fell that far.
+Every re-attempt runs on the dispatch thread, so launches stay on one
+thread and one stream.  A fatal error (a deterministic one, or a sticky
+CUDA error) propagates.  Not ported yet: C4BadWords on the device (it runs
+as a host step), meshes and warmup.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import queue
 import threading
 import time
+import traceback
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import nullcontext
+from concurrent.futures import Future
 from itertools import islice
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..config.pipeline import PipelineConfig, StepConfig
+from ..config.pipeline import PipelineConfig, ResilienceConfig, StepConfig
 from ..data_model import ProcessingOutcome, TextDocument
-from ..errors import PipelineError
+from ..errors import PipelineError, RetryExhaustedError, StallError
 from ..filters.c4_quality import CITATION_RE
 from ..filters.common import fmt2, fmt4, rust_bool, rust_float, rust_lines
 from ..filters.fineweb_quality import DEFAULT_STOP_CHARS
@@ -57,6 +69,11 @@ from ..filters.gopher_quality import DEFAULT_STOP_WORDS
 from ..models.langid import ISO_TO_NAME, LANGUAGES, NAME_TO_ISO, LangIdModel
 from ..orchestration import execute_processing_pipeline
 from ..pipeline_builder import build_pipeline_from_config
+from ..resilience.breaker import CircuitBreaker
+from ..resilience.faults import FAULTS
+from ..resilience.retry import RetryPolicy
+from ..resilience.watchdog import WATCHDOG
+from ..utils.metrics import METRICS
 from ..utils.overlap import prefetch_iter, shared_pack_pool
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
@@ -113,6 +130,32 @@ _WORD_TABLE_STEPS = frozenset(
         "FineWebQualityFilter",
     }
 )
+
+
+#: Window sentinel: the breaker refused this batch's dispatch — the drain
+#: sends it straight to the host rung without recording a breaker failure
+#: (the device was never asked, so there is nothing new to count).
+_BREAKER_OPEN = object()
+
+#: Rows the split rung rounds each half up to (the JAX package's sublane
+#: tile, ``pallas_sort.ROWS``), so both halves share one shape.
+_SPLIT_ROW_TILE = 8
+
+
+def _drop_frames(exc: Optional[BaseException]) -> None:
+    """Clear the frames of ``exc``'s tracebacks (and of its cause, context
+    and, for :class:`RetryExhaustedError`, its last error).  A failed
+    attempt's frames hold its device tensors; kept alive by a future or an
+    exhaustion error they would leave the next attempt a full allocator."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if exc.__traceback__ is not None:
+            traceback.clear_frames(exc.__traceback__)
+        for inner in (exc.__cause__, exc.__context__):
+            if inner is not None:
+                _drop_frames(inner)
+        exc = exc.last if isinstance(exc, RetryExhaustedError) else None
 
 
 def _wire_u16(device: torch.device) -> bool:
@@ -246,7 +289,9 @@ def _new_counters() -> Dict[str, object]:
         # caller's thread draining the window's front (wait, assembly and
         # host routes).  ``assemble``: host finalizers.  ``host_routes``:
         # the host oracle on fallback and tail documents, ``host_tails`` the
-        # tail documents' share of it.  ``device_busy``:
+        # tail documents' share of it.  ``ladder_host``: the host oracle on
+        # the documents of batches that fell to the ladder's host rung.
+        # ``device_busy``:
         # CUDA-event time from each batch's upload to its download on the
         # stream that ran it, summed (0 on the CPU).
         "seconds": {
@@ -254,6 +299,7 @@ def _new_counters() -> Dict[str, object]:
             "assemble": 0.0,
             "host_routes": 0.0,
             "host_tails": 0.0,
+            "ladder_host": 0.0,
             "pack": 0.0,
             "wait": 0.0,
             "drain": 0.0,
@@ -319,11 +365,31 @@ class CompiledPipeline:
         # in-flight window and the pack-stage thread pool.
         self._overlap = config.overlap
 
+        # Degradation ladder state (see _execute_packed): retry the batch ->
+        # split it in half -> rerun the docs on the host oracle, with a
+        # breaker that abandons the device path after N consecutive batches
+        # fell all the way to the host rung.
+        rc = config.resilience or ResilienceConfig()
+        self._retry = RetryPolicy.from_config(rc)
+        self._breaker = CircuitBreaker(
+            rc.breaker_threshold, cooldown_s=rc.breaker_cooldown_s
+        )
+        self._split_retry = rc.split_retry
+
         self._host_executor = None
         self._host_suffix_executor = None
         self._fns: Dict[Tuple[int, int], Callable] = {}
         self.counters = _new_counters()
         self._pack_lock = threading.Lock()
+
+        if self.device.type == "cuda":
+            # Build and load the kernels now, so that a failure raises here
+            # (BuildError) and never inside a batch, where the ladder would
+            # take it for a device fault.
+            from ..kernels.build import SOURCES, load
+
+            for name in SOURCES:
+                load(name)
 
     # --- host executors -----------------------------------------------------
 
@@ -457,7 +523,12 @@ class CompiledPipeline:
         """Upload one packed batch and run its (bucket, phase) function on
         the current stream; the returned stats stay on the device.  The
         upload is uint16 under :attr:`wire_u16` (widened to int32 on the
-        device before the function), int32 otherwise."""
+        device before the function), int32 otherwise.  The
+        ``device.execute`` fault seam fires first, inside a watchdog beat
+        when the watchdog is armed, so an injected hang is rescued on the
+        thread that hangs."""
+        with WATCHDOG.stage_beat("device_fetch") if WATCHDOG.enabled else nullcontext():
+            FAULTS.fire("device.execute")
         fn = self._fn_for(batch.max_len, phase)
         cps = np.ascontiguousarray(batch.cps)
         if self.wire_u16:
@@ -486,11 +557,14 @@ class CompiledPipeline:
         buckets[batch.max_len] = buckets.get(batch.max_len, 0) + 1
         self.counters["device_rows"] += len(batch.docs)
         before = _launch_counts()
-        stats = fn(cps_d, lengths)
-        launches = self.counters["launches"]
-        for k, n in _launch_counts().items():
-            launches[k] += n - before[k]
-        return stats
+        try:
+            return fn(cps_d, lengths)
+        finally:
+            # Also the launches of a function that failed part-way (an
+            # out-of-memory attempt the ladder retries).
+            launches = self.counters["launches"]
+            for k, n in _launch_counts().items():
+                launches[k] += n - before[k]
 
     @staticmethod
     def fetch(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -507,7 +581,9 @@ class CompiledPipeline:
         when None), bracketed by two CUDA events whose elapsed time is the
         device seconds; the stats come back in one batch of non-blocking
         copies and one wait on the end event, which waits on that stream
-        only.  On the CPU the device seconds are 0."""
+        only (with the watchdog armed, a poll of the event bounded by the
+        ``device_fetch`` deadline comes first).  On the CPU the device
+        seconds are 0."""
         t0 = time.perf_counter()
         if self.device.type != "cuda":
             stats = self.fetch(self.dispatch_batch(batch, phase))
@@ -521,9 +597,206 @@ class CompiledPipeline:
                 dev_stats = self.dispatch_batch(batch, phase)
                 host = {k: v.to("cpu", non_blocking=True) for k, v in dev_stats.items()}
                 end.record(s)
+                if WATCHDOG.enabled:
+                    # A beat: the caller's wait on this thread leaves the
+                    # bound of this poll to it (_DispatchThread.wait).
+                    with WATCHDOG.stage_beat("device_fetch"):
+                        WATCHDOG.wait_device_ready("device_fetch", (end,))
                 end.synchronize()
         stats = {k: v.numpy() for k, v in host.items()}
         return stats, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+    # --- degradation ladder -------------------------------------------------
+
+    @staticmethod
+    def _split_rows(full: int) -> int:
+        """Rows the split rung packs each half to: half the batch, rounded
+        up to the JAX package's 8-row tile (``pack_documents`` pads the rows
+        beyond the documents)."""
+        half = (full + 1) // 2
+        return min(full, -(-half // _SPLIT_ROW_TILE) * _SPLIT_ROW_TILE)
+
+    def _dispatch_window(self, batch: PackedBatch, phase: int, dispatcher):
+        """Breaker-gated dispatch for the in-flight window.
+
+        Returns the dispatch thread's future (overlapped), the finished
+        ``run_batch`` result (serial), ``None`` when a serial run failed
+        with a retryable error (the drain's ladder re-dispatches from
+        scratch), or ``_BREAKER_OPEN`` when the breaker refused the
+        request.  Fatal errors propagate; a windowed batch's error waits in
+        its future for the drain."""
+        if not self._breaker.allow_request():
+            return _BREAKER_OPEN
+        if dispatcher is not None:
+            return dispatcher.submit(batch, phase)
+        try:
+            return self.run_batch(batch, phase)
+        except Exception as e:  # noqa: BLE001 — classifier decides
+            if self._retry.classify(e) != "retryable":
+                raise
+            self._dispatch_failed(e, phase)
+            return None
+
+    @staticmethod
+    def _dispatch_failed(exc: BaseException, phase: int) -> None:
+        """A failed dispatch, handed to the ladder with nothing in flight
+        (its first attempt re-dispatches), as the JAX package's
+        ``_dispatch_window`` hands it."""
+        WATCHDOG.escalated(exc)
+        logger.warning("Device dispatch failed (phase %d): %s", phase, exc)
+        _drop_frames(exc)
+
+    def _result(self, fut: Future, dispatcher) -> Tuple[Dict[str, np.ndarray], float, float]:
+        """The dispatch thread's result for ``fut``, its wait bounded by the
+        watchdog when armed and added to ``counters["seconds"]["wait"]``."""
+        t0 = time.perf_counter()
+        try:
+            dispatcher.wait(fut)
+            return fut.result()
+        finally:
+            self.counters["seconds"]["wait"] += time.perf_counter() - t0
+
+    def _device_fetch(self, batch: PackedBatch, phase: int, dispatcher, first=None):
+        """One batch's ``run_batch`` result under the device RetryPolicy.
+
+        ``first`` is what the first attempt takes instead of a dispatch:
+        the window's future, or the stall that waiting on it raised.  Every
+        re-attempt dispatches anew, on the dispatch thread when there is
+        one (so launches stay on one thread and one stream) and inline
+        otherwise.  A failed attempt's frames are cleared before the next
+        one starts."""
+        pending = [first]
+
+        def attempt():
+            p, pending[0] = pending[0], None
+            if isinstance(p, BaseException):
+                raise p
+            if p is None:
+                if dispatcher is None:
+                    return self.run_batch(batch, phase)
+                p = dispatcher.submit(batch, phase)
+            return self._result(p, dispatcher)
+
+        return self._retry.run(
+            attempt, seam="device", on_retry=lambda e, _: _drop_frames(e)
+        )
+
+    def _host_rerun(self, docs: List[TextDocument]) -> List[ProcessingOutcome]:
+        """Bottom rung: the full host-oracle pipeline, bit-identical to the
+        device path by the same contract the overflow fallback relies on
+        (docs are re-stamped identically even mid-phase).  Counted apart
+        from the routes (``resilience_ladder_host_total``)."""
+        outcomes: List[ProcessingOutcome] = []
+        t0 = time.perf_counter()
+        for doc in docs:
+            METRICS.inc("resilience_ladder_host_total")
+            outcome = self._host_outcome(doc)
+            if outcome is not None:
+                outcomes.append(outcome)
+        self.counters["seconds"]["ladder_host"] += time.perf_counter() - t0
+        return outcomes
+
+    def _assemble(self, batch: PackedBatch, result, phase: int):
+        """``assemble_phase`` of one ``run_batch`` result, its seconds added
+        to the counters."""
+        stats, host_s, dev_s = result
+        secs = self.counters["seconds"]
+        secs["device"][phase] = secs["device"].get(phase, 0.0) + host_s
+        secs["device_busy"] += dev_s
+        t0 = time.perf_counter()
+        try:
+            return self.assemble_phase(batch, stats, phase)
+        finally:
+            secs["assemble"] += time.perf_counter() - t0
+
+    def _execute_packed(
+        self, batch: PackedBatch, phase: int, pending, dispatcher=None
+    ) -> Tuple[List[ProcessingOutcome], List[TextDocument]]:
+        """One window entry through the degradation ladder.
+
+        ``pending`` is what :meth:`_dispatch_window` left in the window.
+        Rungs: (1) retry the whole batch under the device RetryPolicy;
+        (2) split it in half and retry each half — out-of-memory recovery,
+        and a bisection that saves the healthy half of a poisoned batch;
+        (3) rerun the documents on the host oracle.  Fatal errors (per the
+        classifier: deterministic ones and sticky CUDA errors) propagate
+        immediately.  The circuit breaker counts batches that fell to the
+        host rung; once tripped, the run stays on the host oracle until
+        the half-open cooldown grants a probe.
+
+        A window future's own failure is the JAX package's failed dispatch
+        (the ladder starts with nothing in flight, and no retry is
+        counted); a stall while waiting on it is the first attempt's
+        failure, as the JAX package's first ``_device_fetch`` attempt
+        stalls in its readiness wait.
+        """
+        first = None
+        if isinstance(pending, Future):
+            t0 = time.perf_counter()
+            try:
+                dispatcher.wait(pending)
+            except StallError as e:
+                first = e
+            else:
+                exc = pending.exception()
+                if exc is None:
+                    pending = pending.result()
+                else:
+                    if self._retry.classify(exc) != "retryable":
+                        raise exc
+                    self._dispatch_failed(exc, phase)
+                    pending = None
+            finally:
+                self.counters["seconds"]["wait"] += time.perf_counter() - t0
+        if pending is _BREAKER_OPEN or (
+            pending is None and not self._breaker.allow_request()
+        ):
+            # The breaker refused the dispatch (window sentinel) or refuses
+            # the re-dispatch now: host rung, with no breaker recording —
+            # the device was never asked.
+            return self._host_rerun(batch.docs), []
+        if isinstance(pending, tuple):
+            self._breaker.record_success()
+            return self._assemble(batch, pending, phase)
+        try:
+            result = self._device_fetch(batch, phase, dispatcher, first)
+        except RetryExhaustedError as e:
+            _drop_frames(e)  # descend the ladder below
+        else:
+            self._breaker.record_success()
+            return self._assemble(batch, result, phase)
+
+        fell_to_host = False
+        outcomes: List[ProcessingOutcome] = []
+        survivors: List[TextDocument] = []
+        if self._split_retry and len(batch.docs) > 1:
+            # Split rung: both halves pack to the same padded row count.
+            METRICS.inc("resilience_ladder_split_total")
+            sub_rows = self._split_rows(batch.batch_size)
+            mid = (len(batch.docs) + 1) // 2
+            for part in (batch.docs[:mid], batch.docs[mid:]):
+                if not part:
+                    continue
+                sub = self._timed_pack(part, sub_rows, batch.max_len)
+                try:
+                    result = self._device_fetch(sub, phase, dispatcher)
+                except RetryExhaustedError as e:
+                    _drop_frames(e)
+                    fell_to_host = True
+                    outcomes.extend(self._host_rerun(part))
+                else:
+                    o, alive = self._assemble(sub, result, phase)
+                    outcomes.extend(o)
+                    survivors.extend(alive)
+        else:
+            fell_to_host = True
+            outcomes.extend(self._host_rerun(batch.docs))
+
+        if fell_to_host:
+            self._breaker.record_failure("device batch fell to host rung")
+        else:
+            self._breaker.record_success()
+        return outcomes, survivors
 
     # --- host finalizers ----------------------------------------------------
     # Each maps the integer stats of one step to batch verdicts with the
@@ -1087,7 +1360,8 @@ class CompiledPipeline:
         and overlapped runs produce identical outcome streams by
         construction.  The dispatch thread ends with the chunk, with the
         generator's close and on any error; an error raised on it reaches
-        the caller when its batch is the oldest in the window.
+        the caller when its batch is the oldest in the window, where the
+        degradation ladder (:meth:`_execute_packed`) takes it.
         """
         debug = os.environ.get("TEXTBLAST_PHASE_DEBUG") == "1"
         overlapped = (
@@ -1182,16 +1456,10 @@ class CompiledPipeline:
                     if kind == "batch":
                         inflight -= 1
                         batch, pending = payload
-                        if isinstance(pending, Future):
-                            stats, host_s, dev_s = pending.result()
-                            secs["wait"] += time.perf_counter() - ta
-                        else:
-                            stats, host_s, dev_s = pending
-                        secs["device"][phase] = secs["device"].get(phase, 0.0) + host_s
-                        secs["device_busy"] += dev_s
-                        tb = time.perf_counter()
-                        outcomes, alive = self.assemble_phase(batch, stats, phase)
-                        secs["assemble"] += time.perf_counter() - tb
+                        del payload
+                        outcomes, alive = self._execute_packed(
+                            batch, phase, pending, dispatcher
+                        )
                         survivors.extend(alive)
                     else:
                         outcomes = _process_fallback(payload)
@@ -1210,12 +1478,14 @@ class CompiledPipeline:
                             # Overlapped items are pack futures; resolving
                             # here keeps FIFO order (futures complete out of
                             # order, but we only ever wait on the oldest).
-                            batch = item.result() if isinstance(item, Future) else item
-                            n_batches += 1
-                            if dispatcher is not None:
-                                pending = dispatcher.submit(batch, phase)
+                            if isinstance(item, Future):
+                                if WATCHDOG.enabled:
+                                    WATCHDOG.wait("pack_wait", item.done)
+                                batch = item.result()
                             else:
-                                pending = self.run_batch(batch, phase)
+                                batch = item
+                            n_batches += 1
+                            pending = self._dispatch_window(batch, phase, dispatcher)
                             window.append(("batch", (batch, pending)))
                             inflight += 1
                         if fallback:
@@ -1256,8 +1526,17 @@ class _DispatchThread:
     issued from the caller's thread would overlap nothing: the thread
     takes those waits instead.  One thread keeps launches in order and the
     launch counters exact, and no device tensor crosses threads.  A failed
-    launch or build raises in the batch's future; nothing reruns elsewhere.
+    launch or build raises in the batch's future; the degradation ladder
+    submits its re-attempts here too.
+
+    The waits inside the phase functions block in the CUDA runtime, so
+    with the watchdog armed the caller bounds them from outside
+    (:meth:`wait`).  The thread is a daemon, so that a wedged one left
+    behind by :meth:`close` cannot hold the interpreter at exit.
     """
+
+    #: Poll interval of :meth:`wait` while the thread bounds its own wait.
+    _POLL_S = 0.005
 
     def __init__(self, pipeline: CompiledPipeline) -> None:
         self._pipe = pipeline
@@ -1266,17 +1545,89 @@ class _DispatchThread:
             if pipeline.device.type == "cuda"
             else None
         )
-        self._pool = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="textblast-dispatch"
+        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        # Bumped as each batch starts and ends: the progress the caller's
+        # bounded wait watches.
+        self._progress = 0
+        self._thread = threading.Thread(
+            target=self._loop, name="textblast-dispatch", daemon=True
         )
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            fut, batch, phase = item
+            if not fut.set_running_or_notify_cancel():
+                continue
+            self._progress += 1
+            try:
+                result = self._pipe.run_batch(batch, phase, self._stream)
+            except BaseException as e:  # noqa: BLE001 — the caller's ladder decides
+                # A failed batch waits in the window for the drain, behind
+                # the batches before it; its frames would hold its device
+                # tensors (an out-of-memory attempt's, up to its peak) until
+                # then, and every attempt run meanwhile would find them.
+                _drop_frames(e)
+                fut.set_exception(e)
+            else:
+                fut.set_result(result)
+            finally:
+                self._progress += 1
+                del item, fut
 
     def submit(self, batch: PackedBatch, phase: int) -> Future:
-        return self._pool.submit(self._pipe.run_batch, batch, phase, self._stream)
+        fut: Future = Future()
+        self._queue.put((fut, batch, phase))
+        return fut
+
+    def wait(self, fut: Future) -> None:
+        """Return when ``fut`` is done.  With the watchdog armed, raise
+        :class:`StallError` (stage ``device_fetch``) once this thread has
+        spent the stage deadline without starting or finishing a batch,
+        outside a beat of its own: inside one (the fault seam, the poll
+        of a batch's end event) the thread bounds its wait itself, and the
+        stall is counted once, there.  A batch queued behind others waits
+        as long as the thread makes progress.  Disarmed, return at once
+        (the caller's ``result()`` blocks)."""
+        if fut.done() or not WATCHDOG.enabled:
+            return
+        if WATCHDOG.deadline_for("device_fetch") <= 0:
+            return
+        thread = self._thread
+        while not fut.done():
+            if WATCHDOG.in_beat(thread):
+                time.sleep(self._POLL_S)
+                continue
+            mark = self._progress
+            WATCHDOG.wait(
+                "device_fetch",
+                lambda: fut.done() or self._progress != mark or WATCHDOG.in_beat(thread),
+                lambda: "the dispatch thread is stuck in one batch",
+            )
 
     def close(self) -> None:
         """Cancel the batches not started, wait for the running one and
-        join the thread."""
-        self._pool.shutdown(wait=True, cancel_futures=True)
+        join the thread.  With the watchdog armed the join is bounded: a
+        thread that makes no progress for the ``device_fetch`` deadline is
+        logged and left behind."""
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                item[0].cancel()
+        self._queue.put(None)
+        if not WATCHDOG.enabled:
+            self._thread.join()
+            return
+        try:
+            WATCHDOG.join_thread("device_fetch", self._thread, lambda: self._progress)
+        except StallError as e:
+            logger.error("Left the dispatch thread behind, wedged in a batch: %s", e)
 
 
 _EVALS = {

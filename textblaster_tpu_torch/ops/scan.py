@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 
 import torch
 
+from ..kernels.build import check
 from .device import shift_scan_tuple
 
 __all__ = [
@@ -80,8 +81,8 @@ __all__ = [
 LAUNCHES: Dict[str, int] = {"affine_scan": 0, "dfa_scan": 0, "fused_scan": 0, "chain_scan": 0}
 #: The same launches by variant: ``(kernel, rows, width, k)`` for
 #: ``affine_scan`` (k accumulators), ``(kernel, rows, width, n_states)``
-#: for ``dfa_scan``, ``(kernel, rows, width)`` for ``fused_scan``
-#: (``chain_scan`` below).
+#: for ``dfa_scan``, ``(kernel, rows, width)`` for ``fused_scan`` and
+#: ``chain_scan``.
 SHAPE_LAUNCHES: Dict[Tuple[Any, ...], int] = {}
 #: The ``chain_scan`` launches of LAUNCHES by call site (the ``site`` its
 #: caller names), and by ``(site, width)``.
@@ -274,8 +275,7 @@ def affine_hash_scan(
     lib = _scan_lib()
     with torch.cuda.device(m.device):
         err = lib.tb_affine_scan(*ptrs, rows, length, k, cluster, threads, segs, _stream(m))
-    if err != 0:
-        raise RuntimeError(f"affine_hash_scan: CUDA error {err}")
+    check(err, "affine_hash_scan")
     _count("affine_scan", rows, length, k)
     return outs
 
@@ -301,8 +301,7 @@ def dfa_compose_scan(fns: torch.Tensor, n_states: int) -> torch.Tensor:
     with torch.cuda.device(fns.device):
         err = lib.tb_dfa_scan(fns.data_ptr(), out.data_ptr(), rows, length, n_states, cluster,
                               threads, segs, _stream(fns))
-    if err != 0:
-        raise RuntimeError(f"dfa_compose_scan: CUDA error {err}")
+    check(err, "dfa_compose_scan")
     _count("dfa_scan", rows, length, n_states)
     return out
 
@@ -484,8 +483,7 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
     with torch.cuda.device(dev):
         err = lib.tb_fused_scan((ctypes.c_int * len(code))(*code), len(groups), ptrs, len(xs),
                                 len(outs), rows, length, fused_geometry(length), _stream(xs[0]))
-    if err != 0:
-        raise RuntimeError(f"fused_scan: CUDA error {err}")
+    check(err, "fused_scan")
     _count("fused_scan", rows, length)
     return res
 
@@ -1064,7 +1062,7 @@ def chain_scan(passes: Sequence[dict], site: Optional[str] = None
     lasts = last_buf.unbind(0) if last_buf is not None else ()
     outs = [lasts[i] if is_last else scans[i] for is_last, i in prog.out_pos]
     if rows:
-        from ..kernels.build import check, load
+        from ..kernels.build import load
 
         lib = load("chain")
         handle = prog.encode(lib)
@@ -1087,7 +1085,7 @@ def chain_scan(passes: Sequence[dict], site: Optional[str] = None
             with torch.cuda.device(dev):
                 err = lib.tb_chain_launch(*args)
         check(err, "chain_scan")
-        LAUNCHES["chain_scan"] += 1
+        _count("chain_scan", rows, length)
         CHAIN_SITE_LAUNCHES[site] = CHAIN_SITE_LAUNCHES.get(site, 0) + 1
         CHAIN_SHAPE_LAUNCHES[(site, length)] = CHAIN_SHAPE_LAUNCHES.get((site, length), 0) + 1
     return [[tuple(outs[s] for s in g_slots) for g_slots in p_layout] for p_layout in prog.layout]

@@ -1,7 +1,7 @@
 """Orchestration: feed documents in, aggregate outcomes out.
 
-Copy of the JAX package's ``orchestration.py`` without its metrics and
-dead-letter hooks (those layers are not ported yet).
+Copy of the JAX package's ``orchestration.py`` without its metrics hooks
+(that layer is not ported yet).
 
 TPU-native re-design of the reference's producer/worker split
 (``/root/reference/src/producer_logic.rs``, ``worker_logic.rs``): there is no
@@ -65,17 +65,20 @@ def read_documents(
     id_column: str = "id",
     batch_size: int = DEFAULT_READ_BATCH_SIZE,
     skip_rows: int = 0,
+    retry_policy=None,
 ) -> Iterator[Union[TextDocument, PipelineError]]:
     """Stream documents off disk (publish_tasks' reading half,
     producer_logic.rs:30-44).  ``skip_rows`` seeks past the first rows
-    without decoding them (row-group cursor)."""
+    without decoding them (row-group cursor).  ``retry_policy`` overrides
+    the reader's default guard on the row-group read seam."""
     reader = ParquetReader(
         ParquetInputConfig(
             path=input_file,
             text_column=text_column,
             id_column=id_column,
             batch_size=batch_size,
-        )
+        ),
+        retry_policy=retry_policy,
     )
     return reader.read_documents(skip_rows=skip_rows)
 
@@ -129,12 +132,18 @@ def aggregate_results_from_stream(
     excluded_file: str,
     published_count: Optional[int] = None,
     progress: Optional[Callable[[AggregationResult], None]] = None,
+    deadletter=None,
     write_queue: int = 0,
 ) -> AggregationResult:
     """Route outcomes to the kept/excluded Parquet pair
     (producer_logic.rs:109-196).  Broker-independent: accepts any iterable of
     outcomes — the seam the reference's fake-stream tests rely on
     (producer_tests.rs:324-573).
+
+    ``deadletter`` (a :class:`~textblaster_tpu_torch.resilience.DeadLetterSink`)
+    additionally receives every Error outcome; the kept/excluded pair still
+    gets neither-file behavior for them, so the default artifacts are
+    byte-identical with or without the sink.
 
     ``write_queue`` > 0 moves the actual Parquet writes onto a writer
     thread behind a bounded FIFO queue that deep (the overlapped pipeline's
@@ -186,8 +195,11 @@ def aggregate_results_from_stream(
                     excl_writer.write_batch(excl_batch)
                     excl_batch.clear()
             else:
-                # Error outcomes are counted in neither file (rs:168-170).
+                # Error outcomes are counted in neither file (rs:168-170);
+                # the opt-in dead-letter sink is the only place they land.
                 result.errors += 1
+                if deadletter is not None:
+                    deadletter.record_outcome(outcome)
             if progress is not None:
                 progress(result)
             if published_count is not None and result.received >= published_count:

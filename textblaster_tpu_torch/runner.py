@@ -24,6 +24,8 @@ from .orchestration import (
 from .ops.packing import DEFAULT_BUCKETS
 from .ops.pipeline import CompiledPipeline, process_documents_device
 from .pipeline_builder import build_pipeline_from_config
+from .resilience.deadletter import DeadLetterSink
+from .resilience.retry import RetryPolicy
 from .utils.overlap import prefetch_iter
 
 logger = logging.getLogger(__name__)
@@ -44,9 +46,16 @@ def run_pipeline(
     device_batch: Optional[int] = None,
     buckets: Optional[Sequence[int]] = None,
     pipeline: Optional[CompiledPipeline] = None,
+    errors_file: Optional[str] = None,
 ) -> AggregationResult:
     """Process one Parquet shard.  ``device`` defaults to ``cuda``; pass a
     prebuilt ``pipeline`` to read its counters afterwards.
+
+    ``errors_file`` opts into the dead-letter Parquet file: every Error
+    outcome and every unreadable row lands there (the kept/excluded pair
+    is the same with or without it).  Row groups are read under the
+    ``resilience:`` retry policy; one that stays unreadable is quarantined,
+    one read error per row.
 
     The device backend overlaps by default (``config.overlap``): the
     reader runs ahead on its own thread, the pipeline keeps
@@ -56,9 +65,12 @@ def run_pipeline(
     (``overlap.enabled: false`` or ``TEXTBLAST_NO_OVERLAP=1``)."""
     read_errors = [0]
     read_seconds = [0.0]
+    deadletter = DeadLetterSink(errors_file) if errors_file is not None else None
 
     def on_read_error(err) -> None:
         read_errors[0] += 1
+        if deadletter is not None:
+            deadletter.record_read_error(err)
 
     if backend == "device" and pipeline is None:
         pipeline = CompiledPipeline(
@@ -71,6 +83,7 @@ def run_pipeline(
         read_documents(
             input_file, text_column=text_column, id_column=id_column,
             batch_size=read_batch_size,
+            retry_policy=RetryPolicy.from_config(config.resilience),
         ),
         read_seconds,
     )
@@ -100,15 +113,21 @@ def run_pipeline(
             outcomes,
             output_file=output_file,
             excluded_file=excluded_file,
+            deadletter=deadletter,
             write_queue=oc.write_queue if overlapped else 0,
         )
     finally:
-        # Stop the pipeline's dispatch thread and the read-ahead thread on
-        # every exit path, not when a traceback lets go of the generator.
-        if outcomes is not None:
-            outcomes.close()
-        if overlapped:
-            docs.close()
+        # Stop the pipeline's dispatch thread and the read-ahead thread, and
+        # close the dead-letter file, on every exit path, not when a
+        # traceback lets go of the generator.
+        try:
+            if outcomes is not None:
+                outcomes.close()
+            if overlapped:
+                docs.close()
+        finally:
+            if deadletter is not None:
+                deadletter.close()
     result.read_errors = read_errors[0]
     result.seconds["read"] = read_seconds[0]
     return result

@@ -1,7 +1,7 @@
 """Bounded producer/consumer plumbing for the overlapped host pipeline.
 
-Copy of the JAX package's ``utils/overlap.py`` without its stall-watchdog,
-metrics and trace hooks (those layers are not ported yet).
+Copy of the JAX package's ``utils/overlap.py`` without its metrics and
+trace hooks (that layer is not ported yet).
 
 The device path's host work is three independent stages — read Parquet,
 pack batches, write outcomes — each of which spends most of its time in
@@ -28,6 +28,11 @@ Three primitives live here:
     drains the queue, joins the thread and closes the inner writer (also
     after a write error surfaced, so no thread or file handle outlives it).
 
+Both queue seams (reader prefetch ``get``, write-behind ``put``, and the
+writer's teardown) are supervised by the stall watchdog when it is armed;
+disabled (the default) each seam pays a single ``WATCHDOG.enabled``
+attribute check.
+
 ``shared_pack_pool``
     The process-wide pack-worker ``ThreadPoolExecutor``.  Packing releases
     the GIL (str.encode + numpy scatter), so one pool serves every
@@ -40,6 +45,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Any, Dict, Iterable, Iterator, List, Optional
+
+from ..resilience.watchdog import WATCHDOG
 
 __all__ = ["prefetch_iter", "ThreadedWriter", "shared_pack_pool"]
 
@@ -100,7 +107,10 @@ class _PrefetchIterator:
                 return item
             if self._done:
                 raise StopIteration
-            got = self._queue.get()
+            if WATCHDOG.enabled:
+                got = WATCHDOG.queue_get("read_prefetch", self._queue)
+            else:
+                got = self._queue.get()
             if got is _DONE:
                 self._done = True
                 raise StopIteration
@@ -217,7 +227,10 @@ class ThreadedWriter:
         if self._closed:
             raise RuntimeError("ThreadedWriter is closed")
         self._raise_pending()
-        self._queue.put(list(outcomes))
+        if WATCHDOG.enabled:
+            WATCHDOG.queue_put("write_queue", self._queue, list(outcomes))
+        else:
+            self._queue.put(list(outcomes))
 
     def close(self) -> None:
         # Also after a write error closed the wrapper: the drain thread is
@@ -226,9 +239,15 @@ class ThreadedWriter:
             return
         self._closed = True
         # The drain thread consumes until the sentinel, so this put and the
-        # join both end once the queued writes have run.
-        self._queue.put(_DONE)
-        self._thread.join()
+        # join both end once the queued writes have run.  Armed, a drain
+        # that stops making progress raises StallError instead (the thread
+        # and the inner writer are left to it).
+        if WATCHDOG.enabled:
+            WATCHDOG.queue_put("write_queue", self._queue, _DONE)
+            WATCHDOG.join_thread("write_queue", self._thread, self._queue.qsize)
+        else:
+            self._queue.put(_DONE)
+            self._thread.join()
         self._thread = None
         try:
             if self._error is not None:
