@@ -70,14 +70,29 @@ Phases (any failure exits non-zero without the final result line):
    write), the host
    routes by cause, the bytes uploaded and the device-busy share: CUDA
    events around each batch on the stream that ran it, summed, over the
-   run's wall time.
+   run's wall time.  Each run's report (the port's ``build_run_report``
+   relative to a ``metrics_snapshot`` taken just before the run) must
+   hold its outcome counts, a funnel whose per-step drops sum to the rows
+   of the excluded file, and device batches equal to the pipeline's
+   batches over all phases and to the per-bucket dispatch counters,
+   bucket by bucket; each run prints the report's stage breakdown (the
+   JAX package's stage names, with the host/device verdict), the padding
+   waste and the funnel.
 5. Launches per shape: the first chain run's launches of every kernel by
    shape and variant, each beside the kernel's time at that shape
    (``sort2`` and the per-scan kernels are timed at every shape and
    variant the run launched them at), and per kernel the sum of
    launches x (kernel ms - bound ms), the device time the kernel loses on
    the main path against its bound.
-6. Fault phase: the degradation ladder, the breaker and the watchdog,
+6. The CLI: ``textblaster_tpu_torch.cli.main`` on ``cuda`` over the first
+   2,000 documents with ``--run-report`` and ``--metrics-port`` on a free
+   loopback port; one ``GET /metrics`` while the endpoint is up must pass
+   the exposition rules (``utils/promlint.py``), the summary line must be
+   the JAX package's, with the report's counts and the files' rows; a run
+   over a missing input must exit 1 with ``Pipeline run failed:``.  Then
+   the host seconds of one registry increment (the unit cost of a metric
+   hook), over 200,000 of them.
+7. Fault phase: the degradation ladder, the breaker and the watchdog,
    each run with zero backoff and a breaker threshold of 2 and held to a
    fault-free run of the same documents (kept and excluded rows equal by
    id, every column): over the first 2,000 documents a fault-free run
@@ -96,7 +111,7 @@ Phases (any failure exits non-zero without the final result line):
    a fatal ``ValueError`` that must propagate with no dispatch thread
    left.  Each run prints docs/s beside its fault-free run's, the ladder
    and watchdog counters and the launches at the split rows.
-7. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+8. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -964,10 +979,13 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
                batch_size=None, prepare=None):
     """One run of the port's ``run`` entry point over ``inp``; every kernel
     launch counter and the dup-walk counters are set to 0 just before and
-    read just after.  ``prepare(pipeline)`` runs before the run."""
+    read just after.  ``prepare(pipeline)`` runs before the run.  The
+    run's report (``build_run_report``, relative to a ``metrics_snapshot``
+    taken just before) rides along as ``report``."""
     from textblaster_tpu_torch.ops import scan, sort, stats
     from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
     from textblaster_tpu_torch.runner import run_pipeline
+    from textblaster_tpu_torch.utils.metrics import build_run_report, metrics_snapshot
 
     pipe = CompiledPipeline(config, device=device, batch_size=batch_size)
     if prepare is not None:
@@ -983,6 +1001,7 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
     for d in (scan.SHAPE_LAUNCHES, sort.SHAPE_LAUNCHES, scan.CHAIN_SITE_LAUNCHES,
               scan.CHAIN_SHAPE_LAUNCHES):
         d.clear()
+    baseline = metrics_snapshot()
     t0 = time.perf_counter()
     res = run_pipeline(config, inp, *out, backend="device", pipeline=pipe,
                        errors_file=errors_file)
@@ -990,6 +1009,12 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
         torch.cuda.synchronize()
     dev_s = time.perf_counter() - t0
     c = pipe.counters
+    report = build_run_report(
+        baseline=baseline, wall_time_s=dev_s,
+        counts={"received": res.received, "success": res.success, "filtered": res.filtered,
+                "errors": res.errors, "read_errors": res.read_errors},
+        provenance={"entry": "chip_smoke.py device_run", "schedule": tag, "device": device},
+    )
     return {
         "schedule": tag,
         "overlapped": config.overlap.enabled and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1",
@@ -998,6 +1023,7 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
         "kept": res.success,
         "excluded": res.filtered,
         "errors": res.errors,
+        "read_errors": res.read_errors,
         "device_seconds": dev_s,
         "device_docs_per_s": res.received / dev_s,
         # Summed CUDA-event spans, each batch's upload to its download on
@@ -1022,7 +1048,41 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
         "dup_walk": dict(stats.DUP_WALK),
         "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20) if device == "cuda" else None,
         "outputs": out,
+        "report": report,
     }
+
+
+def check_report(run) -> None:
+    """Hold a run's report to the run: its counts are the run's outcome
+    counts; its funnel's drops sum to the rows of the excluded file; its
+    occupancy counts the batches the pipeline dispatched over all phases
+    (``counters["batches_by_bucket"]``), bucket by bucket.  Prints the
+    stage breakdown under the JAX package's names, with its verdict, and
+    the padding waste."""
+    import pyarrow.parquet as pq
+
+    tag, rep = run["schedule"], run["report"]
+    counts = {"received": run["received"], "success": run["kept"], "filtered": run["excluded"],
+              "errors": run["errors"], "read_errors": run["read_errors"]}
+    if rep["counts"] != counts:
+        fail(f"{tag}: run report counts {rep['counts']}, the run {counts}")
+    excluded_rows = pq.ParquetFile(run["outputs"][1]).metadata.num_rows
+    funnel = rep["funnel"]
+    if not (funnel["dropped_total"] == excluded_rows == run["excluded"]
+            == sum(funnel["per_filter_dropped"].values())):
+        fail(f"{tag}: funnel {funnel} against {excluded_rows} excluded rows")
+    occ = rep["occupancy"]
+    by_bucket = {int(k): v for k, v in run["batches_by_bucket"].items()}
+    if not (occ["device_batches"] == sum(by_bucket.values())
+            == sum(occ["per_bucket_dispatches"].values())
+            and occ["per_bucket_dispatches"] == by_bucket):
+        fail(f"{tag}: occupancy {occ} against the pipeline's batches {by_bucket}")
+    st = rep["stages"]
+    print(f"run report, {tag}: stages {json.dumps(st['stages_s'])}, host {st['host_s']} s "
+          f"vs device-wait {st['device_s']} s -> {st['verdict']}; occupancy "
+          f"{occ['real_codepoints']} real of {occ['padded_lanes']} lanes, waste "
+          f"{occ['waste_ratio']}, dispatches {json.dumps(occ['per_bucket_dispatches'])}; "
+          f"funnel {json.dumps(funnel)}", flush=True)
 
 
 def _parity(run, host_kept, host_excl, ids=None):
@@ -1135,6 +1195,7 @@ def main_path(device: str, rows, work: str):
         if (run["decision_parity"] != 1.0 or not equal
                 or (whole and run["received"] != host_received)):
             fail(f"{tag} run and host oracle differ (parity {run['decision_parity']})")
+        check_report(run)
         schedule = tag.split("_")[0]
         for k in must[schedule]:
             if run["launches"][k] <= 0:
@@ -1164,6 +1225,152 @@ def main_path(device: str, rows, work: str):
     if missing:
         fail(f"buckets never dispatched: {missing}")
     return summary
+
+
+# --- the CLI --------------------------------------------------------------------
+
+CLI_DOCS = 2000  # the CLI run's documents
+#: The JAX package's summary line (textblaster_tpu/cli.py:743-757).
+SUMMARY_RE = (r"^Processed (\d+) documents in \d+\.\d\ds \((\d+\.\d) docs/sec\): "
+              r"(\d+) kept -> (\S+), (\d+) excluded -> (\S+), (\d+) errored "
+              r"\(in neither file\)\.$")
+
+
+def registry_op_seconds(n: int = 200_000) -> float:
+    """Host seconds of one locked ``Metrics.inc`` on this machine (``n`` of
+    them on a scratch registry): the unit cost of a metric hook."""
+    from textblaster_tpu_torch.utils.metrics import Metrics
+
+    m = Metrics()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        m.inc("producer_results_received_total")
+    return (time.perf_counter() - t0) / n
+
+
+def _free_loopback_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli_main(argv):
+    """``textblaster_tpu_torch.cli.main(argv)`` with its stdout and stderr
+    captured and the root logger given back after (the CLI sets up
+    logging): ``(exit code, stdout, stderr)``."""
+    import contextlib
+    import io
+    import logging
+
+    from textblaster_tpu_torch import cli
+
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+                h.close()
+        for h in handlers:
+            if h not in root.handlers:
+                root.addHandler(h)
+        root.setLevel(level)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def cli_phase(rows, work: str, device: str = "cuda"):
+    """The port's CLI on ``device`` over the first ``CLI_DOCS`` documents,
+    with ``--run-report`` and ``--metrics-port`` on a free loopback port:
+    one ``GET /metrics`` while the endpoint is up, held to the exposition
+    rules (``utils/promlint.py``); the summary line in the JAX package's
+    format, its numbers equal to the report's counts and the output files'
+    rows; then a run over a missing input, which must exit 1 with
+    ``Pipeline run failed:``."""
+    import re
+    import urllib.request
+
+    import pyarrow.parquet as pq
+
+    from textblaster_tpu_torch import cli
+    from textblaster_tpu_torch.utils.promlint import exposition_problems
+
+    inp = os.path.join(work, "corpus_cli.parquet")
+    write_parquet(inp, rows[:CLI_DOCS])
+    kept, excl = os.path.join(work, "cli_kept.parquet"), os.path.join(work, "cli_excl.parquet")
+    report_path = os.path.join(work, "cli_report.json")
+    port = _free_loopback_port()
+    servers = []
+    real = cli.setup_prometheus_metrics
+
+    def capture(p):
+        servers.append(real(p))
+        return servers[-1]
+
+    cli.setup_prometheus_metrics = capture
+    try:
+        t0 = time.perf_counter()
+        rc, out, err = _cli_main(["run", "-i", inp, "-c", CONFIG, "-o", kept, "-e", excl,
+                                  "--device", device, "--run-report", report_path,
+                                  "--metrics-port", str(port)])
+        wall = time.perf_counter() - t0
+        for line in (out + err).splitlines():
+            print(f"  cli | {line}", flush=True)
+        if rc != 0:
+            fail(f"the CLI run exited {rc}")
+        if len(servers) != 1 or servers[0] is None:
+            fail(f"the CLI did not serve /metrics on port {port}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+            status, body = resp.status, resp.read().decode("utf-8")
+    finally:
+        cli.setup_prometheus_metrics = real
+        for server in servers:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+    problems = exposition_problems(body)
+    if status != 200 or problems:
+        fail(f"GET /metrics: status {status}, exposition problems {problems[:5]}")
+    m = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
+    if not m:
+        fail(f"the CLI's summary line is not the JAX package's: {out[:300]!r}")
+    received, rate, n_kept, n_excl, errors = (m.group(1), m.group(2), m.group(3),
+                                              m.group(5), m.group(7))
+    with open(report_path) as f:
+        report = json.load(f)
+    counts = report["counts"]
+    rows_kept, rows_excl = (pq.ParquetFile(p).metadata.num_rows for p in (kept, excl))
+    if not (int(received) == counts["received"] == CLI_DOCS
+            and int(n_kept) == counts["success"] == rows_kept
+            and int(n_excl) == counts["filtered"] == rows_excl
+            == report["funnel"]["dropped_total"]
+            and int(errors) == counts["errors"]):
+        fail(f"the CLI's summary {m.group(0)!r} and report counts {counts} disagree "
+             f"with the files ({rows_kept} kept, {rows_excl} excluded rows)")
+    if report["schema"] != "textblaster-run-report/v4" or report["config"]["device"] != device:
+        fail(f"the CLI's run report: schema {report['schema']}, config {report['config']}")
+    scraped = {ln.split(" ")[0]: float(ln.split(" ")[1]) for ln in body.splitlines()
+               if ln and not ln.startswith("#") and "{" not in ln}
+    if scraped.get("occupancy_device_batches_total", 0.0) < report["occupancy"]["device_batches"]:
+        fail("the scrape shows fewer device batches than the CLI run dispatched")
+    missing = os.path.join(work, "no_such_input.parquet")
+    rc_missing, out_missing, err_missing = _cli_main(
+        ["run", "-i", missing, "-c", CONFIG, "-o", kept, "-e", excl, "--device", device])
+    if rc_missing != 1 or not err_missing.startswith("Pipeline run failed:") \
+            or "Traceback" in err_missing:
+        fail(f"a missing input gave exit code {rc_missing}: {err_missing[:300]!r}")
+    print(f"cli: {CLI_DOCS} documents on {device}, {rate} docs/s by the summary line "
+          f"({wall:.2f} s with set-up); GET /metrics {status}, {len(body)} bytes, "
+          f"{len(scraped)} samples, exposition clean; missing input -> exit 1, "
+          f"{err_missing.strip()[:80]!r}", flush=True)
+    return {"documents": CLI_DOCS, "wall_seconds": wall, "summary_line": m.group(0),
+            "report": report, "scrape_bytes": len(body), "scrape_samples": len(scraped),
+            "missing_input": err_missing.strip()}
 
 
 # --- fault phase --------------------------------------------------------------
@@ -1524,6 +1731,10 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     summary = main_path("cuda", rows, work)
     losses = launch_losses(summary["chain"], per_shape, timers)
+    cli_run = cli_phase(rows, work)
+    cli_run["registry_op_us"] = registry_op_seconds() * 1e6
+    print(f"metrics: one registry increment takes {cli_run['registry_op_us']:.3f} us "
+          "on this host", flush=True)
     t0 = time.perf_counter()
     faults = fault_phase(rows, work, checked)
     print(f"fault phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1556,7 +1767,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
-                   "main_path": summary, "fault_phase": faults,
+                   "main_path": summary, "cli": cli_run, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

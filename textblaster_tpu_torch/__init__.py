@@ -17,6 +17,10 @@ Layer map:
   the kernel wrappers (:mod:`.ops.scan`, :mod:`.ops.sort`) and the
   pipeline (:mod:`.ops.pipeline`).
 * :mod:`.kernels` — builds ``csrc/*.cu`` with ``nvcc`` at first use.
+* :mod:`.resilience` — retry, split and host ladder, breaker, faults,
+  watchdog, dead-letter file.
+* :mod:`.utils` — host helpers; the metrics registry, ``/metrics`` and the
+  run report (:mod:`.utils.metrics`); logging (:mod:`.utils.logging_setup`).
 * :mod:`.runner`, :mod:`.cli` — ``python -m textblaster_tpu_torch run``.
 """
 

@@ -88,6 +88,9 @@ class TokenCounter(ProcessingStep):
                     )
                     self._tokenizer = Tokenizer.from_file(vendored)
                     self._standin = True
+                    from ..utils.metrics import METRICS
+
+                    METRICS.inc("worker_tokenizer_standin_total")
         except UnexpectedError:
             raise
         except Exception as e:

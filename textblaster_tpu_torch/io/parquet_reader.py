@@ -25,6 +25,7 @@ from __future__ import annotations
 import html
 import json
 import logging
+import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional, Union
 
@@ -129,7 +130,11 @@ class ParquetReader(BaseReader):
             FAULTS.fire("read.batch")
             return pf.read_row_group(group)
 
-        return self.retry_policy.run(fetch, seam="read")
+        t0 = time.perf_counter()
+        try:
+            return self.retry_policy.run(fetch, seam="read")
+        finally:
+            METRICS.inc("stage_read_seconds", time.perf_counter() - t0)
 
     def _iter_group_batches(
         self, skip_rows: int = 0, on_quarantine=None
@@ -224,7 +229,14 @@ class ParquetReader(BaseReader):
                         f"'{self.config.path}' unreadable: {q.error}"
                     )
                 continue
-            yield from self._decode_batch(batch, has)
+            # Decode the whole batch into a list before yielding: the decode
+            # wall time must exclude consumer time (a generator suspends at
+            # every yield), or the read-stage counter would absorb the rest
+            # of the pipeline.
+            t0 = time.perf_counter()
+            items = self._decode_batch(batch, has)
+            METRICS.inc("stage_read_seconds", time.perf_counter() - t0)
+            yield from items
 
     def _decode_batch(
         self, batch: pa.RecordBatch, has: dict

@@ -8,11 +8,17 @@ Re-implementation of ``ParquetWriter``
   Struct{start,end: Timestamp(us)} (nullable), ``metadata`` Utf8 JSON-or-null;
 * empty metadata maps write as null (rs:104-111, SURVEY.md §7 quirk #3);
 * explicit :meth:`close` finalizes the file footer (rs:159-164).
+
+Each writer sums the host-clock seconds of its ``write_batch`` and
+``close`` calls in :attr:`ParquetWriter.seconds` (one thread at a time
+runs them: the caller's, or its writer thread); the ``write_batch`` share
+is also the ``stage_write_seconds`` counter, from the same clock reads.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from typing import List, Optional, Sequence
 
 import pyarrow as pa
@@ -20,6 +26,7 @@ import pyarrow.parquet as pq
 
 from ..data_model import TextDocument
 from ..errors import ParquetError
+from ..utils.metrics import METRICS
 from .base import BaseWriter
 
 __all__ = ["ParquetWriter", "OUTPUT_SCHEMA"]
@@ -53,11 +60,20 @@ class ParquetWriter(BaseWriter):
         except Exception as e:
             raise ParquetError(str(e)) from e
         self.path = path
+        self.seconds = 0.0
 
     def write_batch(self, documents: Sequence[TextDocument]) -> None:
         if not documents:
             return
-        self._write_batch_inner(documents)
+        t0 = time.perf_counter()
+        try:
+            self._write_batch_inner(documents)
+        finally:
+            # Timed here (not in callers) so every write path lands in the
+            # stage counter exactly once.
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            METRICS.inc("stage_write_seconds", dt)
 
     def _write_batch_inner(self, documents: Sequence[TextDocument]) -> None:
         ids: List[str] = []
@@ -101,5 +117,9 @@ class ParquetWriter(BaseWriter):
 
     def close(self) -> None:
         if self._writer is not None:
-            self._writer.close()
-            self._writer = None
+            t0 = time.perf_counter()
+            try:
+                self._writer.close()
+                self._writer = None
+            finally:
+                self.seconds += time.perf_counter() - t0

@@ -40,6 +40,14 @@ Every re-attempt runs on the dispatch thread, so launches stay on one
 thread and one stream.  A fatal error (a deterministic one, or a sticky
 CUDA error) propagates.  Not ported yet: C4BadWords on the device (it runs
 as a host step), meshes and warmup.
+
+The JAX package's metric seams count into the port's registry
+(:mod:`..utils.metrics`) under the same names: occupancy per dispatch
+(:func:`record_occupancy`), the pack, dispatch, device-wait and post stage
+seconds, the in-flight and pack-queue gauges, host fallbacks and tails,
+and the device-side seam of the per-filter funnel.  Where a stage counter
+times the same interval as a ``counters["seconds"]`` key, one pair of
+clock reads feeds both.
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ from ..resilience.breaker import CircuitBreaker
 from ..resilience.faults import FAULTS
 from ..resilience.retry import RetryPolicy
 from ..resilience.watchdog import WATCHDOG
-from ..utils.metrics import METRICS
+from ..utils.metrics import FILTER_DROP_PREFIX, METRICS
 from ..utils.overlap import prefetch_iter, shared_pack_pool
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
@@ -101,6 +109,7 @@ __all__ = [
     "CompiledPipeline",
     "process_documents_device",
     "default_batch_size",
+    "record_occupancy",
     "resolve_device",
 ]
 
@@ -208,6 +217,19 @@ def default_batch_size(buckets=DEFAULT_BUCKETS, device="cuda") -> int:
     if torch.device(device).type == "cpu":
         return max(8, min(256, (64 * 2048) // max_bucket))
     return max(64, min(1024, (1024 * 2048) // max_bucket))
+
+
+def record_occupancy(batch: PackedBatch) -> None:
+    """Occupancy telemetry for one device dispatch (see utils/metrics.py):
+    real codepoints vs padded lanes actually computed, plus a per-bucket
+    dispatch counter.  Called where :meth:`CompiledPipeline.dispatch_batch`
+    counts the batch in ``counters["batches_by_bucket"]``, so the two
+    agree."""
+    rows, length = batch.cps.shape
+    METRICS.inc("occupancy_device_batches_total")
+    METRICS.inc("occupancy_padded_lanes_total", float(rows) * float(length))
+    METRICS.inc("occupancy_real_codepoints_total", float(int(batch.lengths.sum())))
+    METRICS.inc(f"occupancy_dispatches_bucket_{length}")
 
 
 def _split_phases(steps: List[StepConfig]) -> List[List[int]]:
@@ -555,6 +577,7 @@ class CompiledPipeline:
         cps_d = cps_d.to(torch.int32) if self.wire_u16 else cps_d
         buckets = self.counters["batches_by_bucket"]
         buckets[batch.max_len] = buckets.get(batch.max_len, 0) + 1
+        record_occupancy(batch)
         self.counters["device_rows"] += len(batch.docs)
         before = _launch_counts()
         try:
@@ -648,13 +671,20 @@ class CompiledPipeline:
 
     def _result(self, fut: Future, dispatcher) -> Tuple[Dict[str, np.ndarray], float, float]:
         """The dispatch thread's result for ``fut``, its wait bounded by the
-        watchdog when armed and added to ``counters["seconds"]["wait"]``."""
+        watchdog when armed and added to ``counters["seconds"]["wait"]``
+        and ``stage_device_wait_seconds``."""
         t0 = time.perf_counter()
         try:
             dispatcher.wait(fut)
             return fut.result()
         finally:
-            self.counters["seconds"]["wait"] += time.perf_counter() - t0
+            self._waited(time.perf_counter() - t0)
+
+    def _waited(self, dt: float) -> None:
+        """Seconds the caller's thread spent blocked on a batch of the
+        dispatch thread: the device time the window did not hide."""
+        self.counters["seconds"]["wait"] += dt
+        METRICS.inc("stage_device_wait_seconds", dt)
 
     def _device_fetch(self, batch: PackedBatch, phase: int, dispatcher, first=None):
         """One batch's ``run_batch`` result under the device RetryPolicy.
@@ -747,7 +777,7 @@ class CompiledPipeline:
                     self._dispatch_failed(exc, phase)
                     pending = None
             finally:
-                self.counters["seconds"]["wait"] += time.perf_counter() - t0
+                self._waited(time.perf_counter() - t0)
         if pending is _BREAKER_OPEN or (
             pending is None and not self._breaker.allow_request()
         ):
@@ -1259,6 +1289,7 @@ class CompiledPipeline:
             elif overflow_any[row]:
                 self.counters["host_fallback"] += 1
                 self.counters["host_overflow"] += 1
+                METRICS.inc("worker_host_fallback_total")
                 outcome = self._host_outcome(doc)
             else:
                 outcome = self._assemble_row(evals, row, doc)
@@ -1294,6 +1325,10 @@ class CompiledPipeline:
                 if decision.extra.get("rewrite"):
                     self._rewrite_c4(doc, step, decision.extra["keep_mask"])
             if not decision.passed:
+                # Funnel attribution: the device-path twin of the host seam
+                # in orchestration.execute_processing_pipeline — together
+                # the only two creators of FILTERED outcomes.
+                METRICS.inc(FILTER_DROP_PREFIX + step.type)
                 return ProcessingOutcome.filtered(doc, decision.reason)
         return None
 
@@ -1301,7 +1336,8 @@ class CompiledPipeline:
         self, docs: List[TextDocument], batch_size: int, max_len: int
     ) -> PackedBatch:
         """``pack_documents`` with the pack-stage wall clock added to
-        ``counters["seconds"]["pack"]`` (pack workers run it concurrently)."""
+        ``counters["seconds"]["pack"]`` (pack workers run it concurrently)
+        and ``stage_pack_seconds``."""
         t0 = time.perf_counter()
         try:
             return pack_documents(docs, batch_size=batch_size, max_len=max_len)
@@ -1309,6 +1345,7 @@ class CompiledPipeline:
             dt = time.perf_counter() - t0
             with self._pack_lock:
                 self.counters["seconds"]["pack"] += dt
+            METRICS.inc("stage_pack_seconds", dt)
 
     def _packed_source(self, docs_iter, host_tail_max, route_fn, overlapped):
         """The packer stage for one phase.
@@ -1435,8 +1472,10 @@ class CompiledPipeline:
                         tail = cause is None and len(doc.content) <= over_length
                         if tail:
                             counters["host_tail"] += 1
+                            METRICS.inc("worker_host_tail_total")
                         else:
                             counters["host_fallback"] += 1
+                            METRICS.inc("worker_host_fallback_total")
                             if cause is not None:
                                 counters[f"host_routed_{cause}"] += 1
                         ta = time.perf_counter()
@@ -1455,6 +1494,7 @@ class CompiledPipeline:
                     ta = time.perf_counter()
                     if kind == "batch":
                         inflight -= 1
+                        METRICS.set("inflight_batches", inflight)
                         batch, pending = payload
                         del payload
                         outcomes, alive = self._execute_packed(
@@ -1463,7 +1503,9 @@ class CompiledPipeline:
                         survivors.extend(alive)
                     else:
                         outcomes = _process_fallback(payload)
-                    secs["drain"] += time.perf_counter() - ta
+                    dt = time.perf_counter() - ta
+                    secs["drain"] += dt
+                    METRICS.inc("stage_post_seconds", dt)
                     return outcomes
 
                 src, src_close = self._packed_source(
@@ -1484,10 +1526,15 @@ class CompiledPipeline:
                                 batch = item.result()
                             else:
                                 batch = item
+                            if overlapped:
+                                METRICS.set("queue_depth_pack", src.qsize())
                             n_batches += 1
+                            td = time.perf_counter()
                             pending = self._dispatch_window(batch, phase, dispatcher)
+                            METRICS.inc("stage_dispatch_seconds", time.perf_counter() - td)
                             window.append(("batch", (batch, pending)))
                             inflight += 1
+                            METRICS.set("inflight_batches", inflight)
                         if fallback:
                             window.append(("host", fallback))
                         # Host groups at the front never block on the
@@ -1500,6 +1547,7 @@ class CompiledPipeline:
                         yield from _drain_front()
                 finally:
                     src_close()
+                    METRICS.set("inflight_batches", 0)
                 if debug:
                     print(
                         f"[phase {phase}] docs={n_in} batches={n_batches} "

@@ -1,7 +1,8 @@
 """Orchestration: feed documents in, aggregate outcomes out.
 
-Copy of the JAX package's ``orchestration.py`` without its metrics hooks
-(that layer is not ported yet).
+The port's copy of the JAX package's ``orchestration.py``, with its metric
+hooks (the ``worker_*`` and ``producer_*`` series and the host seam of the
+per-filter funnel, ``filter_dropped_total_<step>``).
 
 TPU-native re-design of the reference's producer/worker split
 (``/root/reference/src/producer_logic.rs``, ``worker_logic.rs``): there is no
@@ -28,6 +29,7 @@ from .data_model import ProcessingOutcome, TextDocument
 from .errors import PipelineError, StepError
 from .executor import PipelineExecutor
 from .io import ParquetInputConfig, ParquetReader, ParquetWriter
+from .utils.metrics import FILTER_DROP_PREFIX, METRICS
 
 logger = logging.getLogger(__name__)
 
@@ -96,15 +98,29 @@ def execute_processing_pipeline(
     aggregation sink still writes it to neither file, preserving observable
     output parity while fixing the silent-loss accounting gap.
     """
+    start = time.perf_counter()
+    METRICS.inc("worker_active_tasks")
     try:
         result = executor.run_single(document)
+        METRICS.inc("worker_tasks_processed_total")
         return ProcessingOutcome.success(result)
     except StepError as e:
         filtered = e.filtered()
         if filtered is not None:
+            METRICS.inc("worker_tasks_filtered_total")
+            # Funnel attribution: this is one of exactly two seams that
+            # create a FILTERED outcome (the other is _assemble_row on the
+            # device path), so the per-filter counters sum to the
+            # excluded-Parquet row count by construction.
+            METRICS.inc(FILTER_DROP_PREFIX + e.step_name)
             return ProcessingOutcome.filtered(filtered.document, filtered.reason)
+        METRICS.inc("worker_tasks_failed_total")
         logger.error("Hard error in step '%s': %s", e.step_name, e.source)
         return ProcessingOutcome.error(document, str(e), worker_id)
+    finally:
+        METRICS.dec("worker_active_tasks")
+        METRICS.observe("worker_task_processing_duration_seconds",
+                        time.perf_counter() - start)
 
 
 def process_documents_host(
@@ -159,11 +175,8 @@ def aggregate_results_from_stream(
             os.makedirs(parent, exist_ok=True)
 
     result = AggregationResult()
-    timed = (
-        _TimedWriter(ParquetWriter(output_file)),
-        _TimedWriter(ParquetWriter(excluded_file)),
-    )
-    out_writer, excl_writer = timed
+    writers = (ParquetWriter(output_file), ParquetWriter(excluded_file))
+    out_writer, excl_writer = writers
     if write_queue > 0:
         from .utils.overlap import ThreadedWriter
 
@@ -184,12 +197,14 @@ def aggregate_results_from_stream(
             result.received += 1
             if outcome.kind == ProcessingOutcome.SUCCESS:
                 result.success += 1
+                METRICS.inc("producer_results_success_total")
                 out_batch.append(outcome.document)
                 if len(out_batch) >= PARQUET_WRITE_BATCH_SIZE:
                     out_writer.write_batch(out_batch)
                     out_batch.clear()
             elif outcome.kind == ProcessingOutcome.FILTERED:
                 result.filtered += 1
+                METRICS.inc("producer_results_filtered_total")
                 excl_batch.append(outcome.document)
                 if len(excl_batch) >= PARQUET_WRITE_BATCH_SIZE:
                     excl_writer.write_batch(excl_batch)
@@ -198,8 +213,10 @@ def aggregate_results_from_stream(
                 # Error outcomes are counted in neither file (rs:168-170);
                 # the opt-in dead-letter sink is the only place they land.
                 result.errors += 1
+                METRICS.inc("producer_results_error_total")
                 if deadletter is not None:
                     deadletter.record_outcome(outcome)
+            METRICS.inc("producer_results_received_total")
             if progress is not None:
                 progress(result)
             if published_count is not None and result.received >= published_count:
@@ -229,7 +246,7 @@ def aggregate_results_from_stream(
             guarded(lambda: excl_writer.write_batch(excl_batch))
         guarded(out_writer.close)
         guarded(excl_writer.close)
-        result.seconds["write"] = sum(w.seconds for w in timed)
+        result.seconds["write"] = sum(w.seconds for w in writers)
         if teardown_error is not None:
             if primary is None:
                 raise teardown_error
@@ -241,26 +258,3 @@ def aggregate_results_from_stream(
 
     return result
 
-
-class _TimedWriter:
-    """A Parquet writer that sums the host-clock seconds of its
-    ``write_batch`` and ``close`` calls in :attr:`seconds` (one thread at a
-    time runs them: the caller's, or its writer thread)."""
-
-    def __init__(self, inner: ParquetWriter) -> None:
-        self._inner = inner
-        self.seconds = 0.0
-
-    def write_batch(self, docs) -> None:
-        t0 = time.perf_counter()
-        try:
-            self._inner.write_batch(docs)
-        finally:
-            self.seconds += time.perf_counter() - t0
-
-    def close(self) -> None:
-        t0 = time.perf_counter()
-        try:
-            self._inner.close()
-        finally:
-            self.seconds += time.perf_counter() - t0

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 import time
 from typing import Iterable, Iterator, List, Optional, Sequence
 
@@ -33,6 +34,37 @@ logger = logging.getLogger(__name__)
 __all__ = ["run_pipeline"]
 
 
+class _Progress:
+    """Single-line progress display on stderr (the reference's indicatif
+    bars, bin/producer.rs:31-46): only on a terminal, and throttled by
+    time."""
+
+    def __init__(self, enabled: bool, min_interval_s: float = 0.1) -> None:
+        self.enabled = enabled and sys.stderr.isatty()
+        self.min_interval_s = min_interval_s
+        self._last_t = 0.0
+
+    def update(self, result: AggregationResult) -> None:
+        if not self.enabled:
+            return
+        # Throttled by TIME, not document count: at high docs/s an
+        # every-N-docs refresh puts terminal IO in the hot loop.
+        now = time.monotonic()
+        if now - self._last_t < self.min_interval_s:
+            return
+        self._last_t = now
+        print(
+            f"\rprocessed={result.received} kept={result.success} "
+            f"excluded={result.filtered} errors={result.errors}",
+            end="",
+            file=sys.stderr,
+        )
+
+    def finish(self) -> None:
+        if self.enabled:
+            print(file=sys.stderr)
+
+
 def run_pipeline(
     config: PipelineConfig,
     input_file: str,
@@ -47,6 +79,7 @@ def run_pipeline(
     buckets: Optional[Sequence[int]] = None,
     pipeline: Optional[CompiledPipeline] = None,
     errors_file: Optional[str] = None,
+    quiet: bool = False,
 ) -> AggregationResult:
     """Process one Parquet shard.  ``device`` defaults to ``cuda``; pass a
     prebuilt ``pipeline`` to read its counters afterwards.
@@ -62,7 +95,11 @@ def run_pipeline(
     ``pipeline_depth`` batches in flight on its dispatch thread, and the
     kept/excluded writers drain on writer threads.  Every stage is strict
     FIFO, so the files are byte-identical to the serial path's
-    (``overlap.enabled: false`` or ``TEXTBLAST_NO_OVERLAP=1``)."""
+    (``overlap.enabled: false`` or ``TEXTBLAST_NO_OVERLAP=1``).
+
+    Unless ``quiet``, a progress line goes to stderr when it is a
+    terminal."""
+    progress = _Progress(enabled=not quiet)
     read_errors = [0]
     read_seconds = [0.0]
     deadletter = DeadLetterSink(errors_file) if errors_file is not None else None
@@ -113,6 +150,7 @@ def run_pipeline(
             outcomes,
             output_file=output_file,
             excluded_file=excluded_file,
+            progress=progress.update,
             deadletter=deadletter,
             write_queue=oc.write_queue if overlapped else 0,
         )
@@ -128,6 +166,7 @@ def run_pipeline(
         finally:
             if deadletter is not None:
                 deadletter.close()
+    progress.finish()
     result.read_errors = read_errors[0]
     result.seconds["read"] = read_seconds[0]
     return result

@@ -1,7 +1,8 @@
 """Bounded producer/consumer plumbing for the overlapped host pipeline.
 
-Copy of the JAX package's ``utils/overlap.py`` without its metrics and
-trace hooks (that layer is not ported yet).
+Copy of the JAX package's ``utils/overlap.py`` with its queue-depth gauges
+(``queue_depth_read``, ``queue_depth_write``) and without its trace hooks
+(that layer is not ported yet).
 
 The device path's host work is three independent stages — read Parquet,
 pack batches, write outcomes — each of which spends most of its time in
@@ -47,6 +48,7 @@ import threading
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 from ..resilience.watchdog import WATCHDOG
+from .metrics import METRICS
 
 __all__ = ["prefetch_iter", "ThreadedWriter", "shared_pack_pool"]
 
@@ -111,6 +113,8 @@ class _PrefetchIterator:
                 got = WATCHDOG.queue_get("read_prefetch", self._queue)
             else:
                 got = self._queue.get()
+            # Per-block (never per-item).
+            METRICS.set("queue_depth_read", self._queue.qsize())
             if got is _DONE:
                 self._done = True
                 raise StopIteration
@@ -216,6 +220,7 @@ class ThreadedWriter:
                         self._failed = True
             finally:
                 self._queue.task_done()
+                METRICS.set("queue_depth_write", self._queue.qsize())
 
     def _raise_pending(self) -> None:
         if self._error is not None:
@@ -231,6 +236,7 @@ class ThreadedWriter:
             WATCHDOG.queue_put("write_queue", self._queue, list(outcomes))
         else:
             self._queue.put(list(outcomes))
+        METRICS.set("queue_depth_write", self._queue.qsize())
 
     def close(self) -> None:
         # Also after a write error closed the wrapper: the drain thread is
