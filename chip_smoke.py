@@ -1327,6 +1327,10 @@ def cli_phase(rows, work: str, device: str = "cuda"):
             fail(f"the CLI did not serve /metrics on port {port}")
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
             status, body = resp.status, resp.read().decode("utf-8")
+        m_off = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
+        if not m_off:
+            fail(f"the CLI's summary line is not the JAX package's: {out[:300]!r}")
+        armed = armed_cli_run(inp, work, device, kept, excl, float(m_off.group(2)))
     finally:
         cli.setup_prometheus_metrics = real
         for server in servers:
@@ -1336,9 +1340,7 @@ def cli_phase(rows, work: str, device: str = "cuda"):
     problems = exposition_problems(body)
     if status != 200 or problems:
         fail(f"GET /metrics: status {status}, exposition problems {problems[:5]}")
-    m = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
-    if not m:
-        fail(f"the CLI's summary line is not the JAX package's: {out[:300]!r}")
+    m = m_off
     received, rate, n_kept, n_excl, errors = (m.group(1), m.group(2), m.group(3),
                                               m.group(5), m.group(7))
     with open(report_path) as f:
@@ -1370,7 +1372,127 @@ def cli_phase(rows, work: str, device: str = "cuda"):
           f"{err_missing.strip()[:80]!r}", flush=True)
     return {"documents": CLI_DOCS, "wall_seconds": wall, "summary_line": m.group(0),
             "report": report, "scrape_bytes": len(body), "scrape_samples": len(scraped),
-            "missing_input": err_missing.strip()}
+            "missing_input": err_missing.strip(), "armed": armed}
+
+
+def armed_cli_run(inp, work, device, kept_off, excl_off, rate_off):
+    """The CLI run again over the same documents with the trace, the device
+    trace, the event journal and two SLOs armed (``availability=0.999`` and
+    a throughput floor of a quarter of the unarmed run's docs/s), and
+    ``--run-report`` and ``--metrics-port``.  Checks: kept and excluded files byte-identical to the
+    unarmed run's; the trace loads; one ``device_batch`` span a device
+    batch of the report, each inside its ``device_dispatch`` host span
+    (the host's spans are floored to whole microseconds: 2 us of slack);
+    one kernel span a launch, kernel by kernel; every journal line valid
+    and its per-kind counts the report's; the report's ``slo`` section;
+    ``GET /healthz`` and ``GET /slo`` while the endpoint is up.  Prints
+    the kernel-busy share (kernel span time over batch span time and over
+    the run's wall), the device clock's drift and the docs/s armed
+    against unarmed."""
+    import re
+    import urllib.error
+    import urllib.request
+
+    from textblaster_tpu_torch.ops import scan, sort
+    from textblaster_tpu_torch.utils.events import validate_record
+    from textblaster_tpu_torch.utils.trace import DEVICE_TRACE_FILE
+
+    d = os.path.join(work, "cli_armed")
+    os.makedirs(d, exist_ok=True)
+    kept, excl = os.path.join(d, "kept.parquet"), os.path.join(d, "excl.parquet")
+    trace, journal = os.path.join(d, "trace.json"), os.path.join(d, "events.jsonl")
+    devdir, report_path = os.path.join(d, "devtrace"), os.path.join(d, "report.json")
+    floor = rate_off / 4
+    port = _free_loopback_port()
+    for counts in (scan.LAUNCHES, sort.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    rc, out, err = _cli_main(["run", "-i", inp, "-c", CONFIG, "-o", kept, "-e", excl,
+                              "--device", device, "--trace", trace, "--trace-device", devdir,
+                              "--events-file", journal, "--slo", "availability=0.999",
+                              "--slo", f"throughput_floor={floor:.3f}", "--run-report",
+                              report_path, "--metrics-port", str(port)])
+    wall = time.perf_counter() - t0
+    launches = {**scan.LAUNCHES, **sort.LAUNCHES}
+    for line in err.splitlines()[-4:]:
+        print(f"  cli armed | {line}", flush=True)
+    if rc != 0:
+        fail(f"the armed CLI run exited {rc}: {err[-500:]!r}")
+    answers = {}
+    for path in ("/healthz", "/slo"):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+                answers[path] = (resp.status, json.loads(resp.read()))
+        except urllib.error.HTTPError as e:
+            answers[path] = (e.code, json.loads(e.read()))
+    if answers["/healthz"][0] not in (200, 503) or "status" not in answers["/healthz"][1] \
+            or answers["/slo"][0] != 200 or "objectives" not in answers["/slo"][1]:
+        fail(f"GET /healthz and /slo: {answers}")
+    for a, b in ((kept, kept_off), (excl, excl_off)):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"the armed run's {os.path.basename(a)} differs from the unarmed run's")
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(trace) as f:
+        events = json.load(f)
+    host = {e["args"]["batch"]: e for e in events
+            if e["name"] == "device_dispatch" and "batch" in e.get("args", {})}
+    dev = [e for e in events if e["name"] == "device_batch"]
+    if len(dev) != report["occupancy"]["device_batches"] or len(host) != len(dev):
+        fail(f"{len(dev)} device spans and {len(host)} host spans for "
+             f"{report['occupancy']['device_batches']} device batches")
+    lead = min(e["ts"] - host[e["args"]["batch"]]["ts"] for e in dev)
+    tail = min(host[e["args"]["batch"]]["ts"] + host[e["args"]["batch"]]["dur"]
+               - e["ts"] - e["dur"] for e in dev)
+    clocks = [e["args"] for e in events if e["name"] == "device_clock"]
+    clock = clocks[-1] if clocks else {}
+    with open(os.path.join(devdir, DEVICE_TRACE_FILE)) as f:
+        devtrace = json.load(f)
+    spans = [e for e in devtrace if e["ph"] == "X"]
+    per_kernel = {}
+    for e in spans:
+        if e["tid"] == 2:
+            per_kernel[e["args"]["kernel"]] = per_kernel.get(e["args"]["kernel"], 0) + 1
+    if per_kernel != {k: v for k, v in launches.items() if v}:
+        fail(f"kernel spans {per_kernel} against launches {launches}")
+    kernel_us = sum(e["dur"] for e in spans if e["tid"] == 2)
+    batch_us = sum(e["dur"] for e in spans if e["tid"] == 1)
+    m = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
+    if not m:
+        fail(f"the armed run's summary line: {out[:300]!r}")
+    run_s = float(re.search(r" in (\d+\.\d\d)s ", m.group(0)).group(1))
+    with open(journal) as f:
+        records = [json.loads(line) for line in f]
+    counts = {}
+    for r in records:
+        validate_record(r)
+        counts[r["kind"]] = counts.get(r["kind"], 0) + 1
+    if counts != report["events"]["by_kind"] or records[0]["kind"] != "run_start" \
+            or records[-1]["kind"] != "run_end":
+        fail(f"journal kinds {counts} against the report's {report['events']}")
+    if set(report["slo"].get("objectives", {})) != {"availability", "throughput_floor"}:
+        fail(f"the report's slo section: {report['slo']}")
+    rate = float(m.group(2))
+    busy = {"kernel_over_batch": kernel_us / batch_us, "kernel_over_wall": kernel_us / 1e6 / run_s,
+            "batch_over_wall": batch_us / 1e6 / run_s}
+    print(f"cli armed: {rate} docs/s armed against {rate_off} unarmed ({rate / rate_off:.4f}x), "
+          f"files byte-identical; {len(dev)} device spans = device batches, each inside its "
+          f"host span (least lead {lead} us, least tail {tail} us); device clock {clock}; "
+          f"kernel spans = launches {per_kernel}; kernel-busy share {busy['kernel_over_batch']:.4f} "
+          f"of batch span time, {busy['kernel_over_wall']:.4f} of the run's {run_s:.2f} s wall "
+          f"(batches {busy['batch_over_wall']:.4f}); journal {len(records)} lines valid, "
+          f"kinds {counts}; slo {report['slo']}; GET /healthz {answers['/healthz'][0]} "
+          f"{answers['/healthz'][1]['status']}, GET /slo {answers['/slo'][0]}", flush=True)
+    if lead < -2 or tail < -2:
+        fail(f"a device span leaves its host span: least lead {lead} us, least tail {tail} us")
+    return {"docs_per_s": rate, "docs_per_s_unarmed": rate_off, "wall_seconds": wall,
+            "run_seconds": run_s, "device_spans": len(dev), "least_lead_us": lead,
+            "least_tail_us": tail, "device_clock": clock, "kernel_spans": per_kernel,
+            "kernel_us": kernel_us, "batch_us": batch_us, "busy": busy,
+            "journal_kinds": counts, "slo": report["slo"],
+            "healthz": answers["/healthz"], "slo_endpoint": answers["/slo"][1]}
 
 
 # --- fault phase --------------------------------------------------------------
@@ -1402,15 +1524,21 @@ def fault_config(depth=None):
     return config
 
 
-def fault_run(config, inp, work, tag, arm=None, deadline=0.0, prepare=None, **kw):
+def fault_run(config, inp, work, tag, arm=None, deadline=0.0, prepare=None, journal=False,
+              **kw):
     """:func:`device_run` with ``device.execute`` armed by ``arm`` (the
     injector's keywords) and the watchdog at ``deadline`` for the run only;
     adds the ladder counters' deltas, the seam's fires and the slowest
     batch that completed: its ``run_batch`` seconds on the dispatch thread
     (what the ``device_fetch`` deadline bounds) and its CUDA-event
-    seconds."""
+    seconds.  With ``journal``, the event journal and the trace are armed
+    in memory for the run, and the journal's ``retry`` (device seam),
+    ``ladder_split`` and ``watchdog_stall`` counts must equal the ladder
+    counters', and the trace's instants the journal's."""
     from textblaster_tpu_torch.resilience import FAULTS, WATCHDOG
+    from textblaster_tpu_torch.utils.events import EVENTS, validate_record
     from textblaster_tpu_torch.utils.metrics import METRICS
+    from textblaster_tpu_torch.utils.trace import TRACER
 
     slowest = {"wall_s": 0.0, "device_s": 0.0}
 
@@ -1432,14 +1560,34 @@ def fault_run(config, inp, work, tag, arm=None, deadline=0.0, prepare=None, **kw
     if arm is not None:
         FAULTS.inject("device.execute", **arm)
     WATCHDOG.configure(deadline)
+    if journal:
+        EVENTS.configure(None, ring=1 << 16)
+        TRACER.configure(None, ring=1 << 20)
     try:
         run = device_run(config, inp, work, tag, "cuda", prepare=timed, **kw)
         run["fired"] = FAULTS.fired("device.execute")
     finally:
         FAULTS.reset()
         WATCHDOG.reset()
+        records, instants = EVENTS.drain(), [e["name"] for e in TRACER.drain() if e["ph"] == "i"]
+        EVENTS.close()
+        TRACER.close()
     run["ladder"] = {k: METRICS.get(k) - before[k] for k in LADDER}
     run["slowest_batch"] = slowest
+    if journal:
+        for r in records:
+            validate_record(r)
+        kinds = {"retry": sum(r["kind"] == "retry" and r["data"]["seam"] == "device"
+                              for r in records),
+                 "ladder_split": sum(r["kind"] == "ladder_split" for r in records),
+                 "watchdog_stall": sum(r["kind"] == "watchdog_stall" for r in records)}
+        want = {"retry": run["ladder"]["resilience_retries_device_total"],
+                "ladder_split": run["ladder"]["resilience_ladder_split_total"],
+                "watchdog_stall": run["ladder"]["watchdog_stalls_total"]}
+        seen = {k: instants.count(k) for k in kinds}
+        if kinds != want or seen != kinds:
+            fail(f"fault run {tag}: journal {kinds}, trace instants {seen}, ladder {want}")
+        run["journal"] = kinds
     return run
 
 
@@ -1509,6 +1657,7 @@ def fault_phase(rows, work, checked):
                                                "device_docs_per_s", "ladder", "fired",
                                                "batches_by_bucket", "host_routes",
                                                "slowest_batch")},
+                        "journal": run.get("journal"),
                         "fault_free_docs_per_s": ref["device_docs_per_s"],
                         "fault_free_slowest_batch": ref["slowest_batch"], **extra}
         line = (f"fault run {tag}: {run['received']} documents, {run['device_docs_per_s']:.2f} "
@@ -1516,6 +1665,8 @@ def fault_phase(rows, work, checked):
                 f"{run['fired']}, ladder {json.dumps(run['ladder'])}, slowest batch "
                 f"{json.dumps(run['slowest_batch'])} (fault-free "
                 f"{json.dumps(ref['slowest_batch'])})")
+        if run.get("journal") is not None:
+            line += f", journal {json.dumps(run['journal'])} = ladder"
         if extra:
             line += ", " + json.dumps(extra)
         print(line, flush=True)
@@ -1537,7 +1688,8 @@ def fault_phase(rows, work, checked):
     last = sum(clean["batches_by_bucket"].values()) - 1
 
     retry = fault_run(config, inputs["fault"], work, "fault_retry",
-                      arm=dict(exc=OSError("injected device fault"), times=2, after_calls=last))
+                      arm=dict(exc=OSError("injected device fault"), times=2, after_calls=last),
+                      journal=True)
     same_rows(retry, clean)
     lad = retry["ladder"]
     if (lad["resilience_retries_device_total"], lad["resilience_ladder_split_total"],
@@ -1546,7 +1698,8 @@ def fault_phase(rows, work, checked):
     report("retry", retry, clean)
 
     split = fault_run(config, inputs["fault"], work, "fault_split",
-                      arm=dict(exc=OSError("injected device fault"), times=5, after_calls=last))
+                      arm=dict(exc=OSError("injected device fault"), times=5, after_calls=last),
+                      journal=True)
     same_rows(split, clean)
     lad = split["ladder"]
     if (lad["resilience_ladder_split_total"], lad["resilience_retry_exhausted_total"],
@@ -1577,7 +1730,8 @@ def fault_phase(rows, work, checked):
     # falls to the host rung.
     hang_deadline = max(HANG_DEADLINE_MIN_S, 2 * clean["slowest_batch"]["wall_s"])
     hang = fault_run(fault_config(depth=3), inputs["fault"], work, "fault_hang",
-                     arm=dict(kind="hang", times=2, after_calls=1), deadline=hang_deadline)
+                     arm=dict(kind="hang", times=2, after_calls=1), deadline=hang_deadline,
+                     journal=True)
     same_rows(hang, clean)
     lad = hang["ladder"]
     if (lad["watchdog_stalls_total"] != 2 or lad["resilience_ladder_host_total"]

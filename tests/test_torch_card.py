@@ -530,3 +530,121 @@ def test_window_matches_serial_on_the_card(cuda, monkeypatch):
         assert sorted(stats) == sorted(want)
         for k in want:
             assert np.array_equal(stats[k], want[k]), (batch.max_len, phase, k)
+
+
+# --- device spans from CUDA events ------------------------------------------------
+
+
+@pytest.fixture
+def traced(cuda):
+    """The port's TRACER in memory, and KERNEL_SPANS off, before and after."""
+    from textblaster_tpu_torch.utils.trace import KERNEL_SPANS, TRACER
+
+    TRACER.close()
+    TRACER.drain()
+    TRACER.configure(None, ring=1 << 16)
+    yield TRACER
+    TRACER.close()
+    TRACER.drain()
+    KERNEL_SPANS.enabled = False
+
+
+def test_device_clock_maps_events_between_their_host_reads(cuda, traced):
+    """An event's trace time lies between the host's reads of the trace
+    clock around its ``record`` and its ``synchronize`` (the anchor on an
+    idle stream), and a re-anchor after a synchronize measures the
+    drift."""
+    from textblaster_tpu_torch.utils.trace import DeviceClock
+
+    s = torch.cuda.Stream(device=cuda)
+    s.synchronize()
+    clock = DeviceClock()
+    clock.anchor(s)
+    for cycles in (1_000, 1_000_000, 10_000_000):
+        with torch.cuda.stream(s):
+            h0 = traced.now_us()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(s)
+            torch.cuda._sleep(cycles)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(s)
+            end.synchronize()
+            h1 = traced.now_us()
+        clock.settle(s)
+        t0, t1 = clock.to_us(start), clock.to_us(end)
+        assert h0 - 50 <= t0 <= t1 <= h1 + 50, (h0, t0, t1, h1)
+    assert clock.reanchors >= 1
+    assert clock.stats()["max_drift_us"] < 1000
+
+
+def test_kernel_spans_count_every_launch_inside_its_batch(cuda, traced, tmp_path):
+    """Under ``--trace-device`` every kernel launch gets one span, inside
+    its batch's span, counted as ``LAUNCHES`` counts it."""
+    import json
+
+    from textblaster_tpu_torch.utils.trace import KERNEL_SPANS, DeviceClock
+
+    rng = np.random.default_rng(9)
+    s = torch.cuda.current_stream(cuda)
+    s.synchronize()
+    clock = DeviceClock()
+    clock.anchor(s)
+    before = {**scan.LAUNCHES, **sort.LAUNCHES}
+    KERNEL_SPANS.configure(str(tmp_path))
+    for b in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(s)
+        m, a = _full_range(rng, (64, 2048), cuda), _full_range(rng, (64, 2048), cuda)
+        scan.affine_hash_scan(m, (a,))
+        scan.dfa_compose_scan(_packed_maps(rng, (64, 2048), 4, cuda), 4)
+        sort.sort2(a, torch.arange(2048, dtype=torch.int32, device=cuda).repeat(64, 1))
+        end.record(s)
+        end.synchronize()
+        clock.settle(s)
+        KERNEL_SPANS.resolve(clock, start, end, {"batch": b + 1})
+    launched = {k: v - before[k] for k, v in {**scan.LAUNCHES, **sort.LAUNCHES}.items()}
+    events = json.load(open(KERNEL_SPANS.close()))
+    batches = {e["args"]["batch"]: e for e in events if e["ph"] == "X" and e["tid"] == 1}
+    kernels = [e for e in events if e["ph"] == "X" and e["tid"] == 2]
+    spans = {}
+    for k in kernels:
+        spans[k["args"]["kernel"]] = spans.get(k["args"]["kernel"], 0) + 1
+    assert spans == {k: v for k, v in launched.items() if v}
+    assert len(kernels) == 9
+    assert 0 < sum(k["dur"] for k in kernels) <= sum(b["dur"] for b in batches.values())
+    for k in kernels:
+        b = batches[k["args"]["batch"]]
+        assert b["ts"] - 1 <= k["ts"] and k["ts"] + k["dur"] <= b["ts"] + b["dur"] + 1
+
+
+def test_run_batch_device_span_lies_inside_its_host_span(cuda, traced):
+    """With the trace armed, ``run_batch`` emits one ``device_batch`` span
+    per batch on the ``device`` track, inside the batch's
+    ``device_dispatch`` span (the host's spans are floored to whole
+    microseconds: 2 us of slack)."""
+    import os
+
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.packing import pack_documents
+    from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tp = CompiledPipeline(load_pipeline_config(os.path.join(root, "configs/pipeline_config_offline.yaml")),
+                          buckets=(512, 2048), batch_size=16, device=cuda)
+    # The pipeline routes astral documents to the host before the u16 wire.
+    docs = [TextDocument(id=i, source="t", content=t) for i, t in _card_corpus(40)
+            if len(t) < 2000 and max(map(ord, t), default=0) < 0x10000]
+    batch = pack_documents(docs[:16], batch_size=16, max_len=2048)
+    for phase in (0, 1, 2, 0):
+        tp.run_batch(batch, phase)
+    events = traced.drain()
+    host = {e["args"]["batch"]: e for e in events if e["name"] == "device_dispatch"}
+    dev = [e for e in events if e["name"] == "device_batch"]
+    assert len(dev) == len(host) == 4
+    for d in dev:
+        h = host[d["args"]["batch"]]
+        assert h["ts"] - 2 <= d["ts"] and d["ts"] + d["dur"] <= h["ts"] + h["dur"] + 2, (h, d)
+    lanes = {e["args"]["name"]: e["tid"] for e in events if e["name"] == "thread_name"}
+    assert {d["tid"] for d in dev} == {lanes["device"]}

@@ -10,7 +10,8 @@
 * ``record_occupancy`` gives equal counter deltas on the same documents
   packed by each package.
 * The HTTP endpoint: GET, HEAD, a query string, 404, no port, a bind
-  failure that is not fatal (as ``tests/test_metrics.py``).
+  failure that is not fatal (as ``tests/test_metrics.py``); ``/healthz``
+  and ``/slo`` answer JSON.
 * The port's exposition lint (``utils/promlint.py``) passes both
   packages' exposition and catches each broken rule.
 * The seams: TokenCounter's stand-in counter, the reader, writer, overlap
@@ -173,10 +174,19 @@ def test_http_endpoint_serves_metrics(server):
         body = resp.read().decode()
     assert "producer_tasks_published_total" in body
     assert exposition_problems(body) == []
-    for path in ("/other", "/telemetry", "/healthz"):
+    for path in ("/other", "/telemetry"):
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(f"http://127.0.0.1:{port}{path}")
         assert e.value.code == 404
+    # /healthz and /slo belong to the SLO engine (tests/test_torch_slo.py):
+    # served, as JSON, 200 or 503.
+    for path in ("/healthz", "/slo"):
+        try:
+            resp = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}")
+        except urllib.error.HTTPError as e:
+            resp = e
+        assert resp.code in (200, 503)
+        assert resp.headers["Content-Type"] == "application/json"
 
 
 def test_http_endpoint_ignores_query_string_and_serves_head(server):

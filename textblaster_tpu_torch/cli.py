@@ -3,13 +3,19 @@
 The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
 ``run`` command that the port supports (``--batch-size``,
 ``--pipeline-depth`` and ``--no-overlap``, ``--errors-file``,
-``--stage-deadline-s``, ``--metrics-port`` and ``--run-report`` among
-them), spelled the same way, plus ``--backend device|host`` and
-``--device cuda|cpu`` (``cuda`` is the default; the run fails rather than
-fall back when CUDA is absent).  A run prints the JAX package's summary
-line and the tail lines whose layers the port has (dead-letter rows, the
-breaker warning, host fallbacks, read errors; unless ``--quiet``, the
-stage, occupancy and funnel summaries on stderr).
+``--stage-deadline-s``, ``--metrics-port``, ``--run-report``, ``--trace``,
+``--trace-device``, ``--events-file`` and ``--slo`` among them), spelled
+the same way, plus ``--backend device|host`` and ``--device cuda|cpu``
+(``cuda`` is the default; the run fails rather than fall back when CUDA is
+absent).  A run prints the JAX package's summary line and the tail lines
+whose layers the port has (dead-letter rows, the breaker warning, host
+fallbacks, read errors; unless ``--quiet``, the stage, occupancy and
+funnel summaries, and the trace, journal and SLO lines, on stderr).
+
+``--trace-device LOGDIR`` is where the ports differ in means: the JAX
+package captures ``jax.profiler.trace``; the port writes per-kernel and
+per-batch device spans from CUDA events (``utils/trace.py``
+``device_profile``) to ``LOGDIR/device_trace.json``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import time
 from . import __version__
 from .config.pipeline import load_pipeline_config
 from .errors import PipelineError
+from .utils.events import EVENTS, flight_record
 from .utils.logging_setup import init_logging
 from .utils.metrics import (
     METRICS,
@@ -39,6 +46,8 @@ from .utils.metrics import (
     stage_snapshot,
     write_run_report,
 )
+from .utils.slo import SLO, parse_slo_arg
+from .utils.trace import TRACER, device_profile
 
 __all__ = ["main", "build_parser"]
 
@@ -111,6 +120,41 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--metrics-port", type=int, default=None,
                      help="Port for the Prometheus metrics HTTP endpoint "
                           "(GET /metrics)")
+    run.add_argument("--trace", default=None, metavar="OUT.JSON",
+                     help="Record a Chrome trace-event JSON of the run "
+                          "(per-batch spans for every pipeline stage across "
+                          "the overlap threads, instant events for "
+                          "resilience transitions, and on cuda one span a "
+                          "batch on a 'device' track, timed by the batch's "
+                          "CUDA events).  Load it at https://ui.perfetto.dev "
+                          "or chrome://tracing.  Near-zero cost when off")
+    run.add_argument("--trace-device", default=None, metavar="LOGDIR",
+                     help="Also record the device timeline: a span for every "
+                          "kernel launch and every batch, from CUDA events, "
+                          "written to LOGDIR/device_trace.json (Perfetto-"
+                          "loadable).  Opt-in and independent of --trace; "
+                          "on the CPU the file holds no device spans")
+    run.add_argument("--events-file", default=None, metavar="OUT.JSONL",
+                     help="Write the structured operational event journal: "
+                          "every retry/breaker/ladder transition, watchdog "
+                          "stall, SLO alert, and the run's start and end as "
+                          "one schema-validated JSONL record, "
+                          "sequence-numbered and stamped on the trace clock.  "
+                          "Near-zero cost when off.  TEXTBLAST_EVENTS sets "
+                          "the same path from the environment")
+    run.add_argument("--slo", action="append", default=None,
+                     metavar="KEY=TARGET",
+                     help="Declare a service-level objective (repeatable): "
+                          "availability=0.999, p99_latency_s=0.25, "
+                          "throughput_floor=500.  The engine evaluates "
+                          "multi-window burn rates against the error budget, "
+                          "publishes slo_* gauges on /metrics and /slo, fires "
+                          "edge-triggered slo_alert journal events, and "
+                          "lands an `slo` section in the run report.  "
+                          "Overrides the config's `slo:` block per key; "
+                          "TEXTBLAST_SLO takes comma-separated pairs from the "
+                          "environment.  Arms the event journal (ring buffer "
+                          "only unless --events-file is also given)")
     run.add_argument("--run-report", default=None, metavar="REPORT.JSON",
                      help="Write a machine-readable end-of-run report "
                           "(stage breakdown, occupancy, resilience "
@@ -183,10 +227,45 @@ def _cmd_run(args: argparse.Namespace) -> int:
             print(f"Invalid --buckets value: {args.buckets!r}", file=sys.stderr)
             return 1
 
+    # SLO objectives: config block first, --slo overrides per key, the env
+    # fallback only when no flag was passed (mirrors TEXTBLAST_STAGE_DEADLINE_S).
+    slo_pairs = list(args.slo or [])
+    if not slo_pairs and os.environ.get("TEXTBLAST_SLO", "").strip():
+        slo_pairs = [
+            s for s in os.environ["TEXTBLAST_SLO"].split(",") if s.strip()
+        ]
+    slo_objectives = dict(config.slo.objectives)
+    for raw in slo_pairs:
+        try:
+            key, target = parse_slo_arg(raw)
+        except ValueError as e:
+            print(f"Invalid --slo value: {e}", file=sys.stderr)
+            return 1
+        slo_objectives[key] = target
+
     from .resilience.watchdog import WATCHDOG
     from .runner import run_pipeline
 
+    # Armed after every check that can end the run early: from here on,
+    # every exit path closes what it arms (the finally below).
+    if args.trace:
+        TRACER.configure(args.trace, process_name="textblast", pid=0)
     WATCHDOG.configure(config.resilience.stage_deadline_s)
+    events_path = args.events_file or (
+        os.environ.get("TEXTBLAST_EVENTS", "").strip() or None
+    )
+    if events_path or slo_objectives:
+        # Objectives without a journal path still arm the ring buffer:
+        # slo_alert events must land somewhere the flight recorder can see.
+        EVENTS.configure(events_path, rank=0)
+    if slo_objectives:
+        SLO.configure(
+            slo_objectives,
+            fast_window_s=config.slo.fast_window_s,
+            slow_window_s=config.slo.slow_window_s,
+            burn_threshold=config.slo.burn_threshold,
+            tick_s=config.slo.tick_s,
+        )
     # The JAX package's provenance keys; the flags the port does not have
     # yet keep their "off" values.
     provenance = {
@@ -207,8 +286,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
         "doc_sample_rate": 0,
         "profile": False,
         "stage_deadline_s": float(config.resilience.stage_deadline_s),
-        "events_file": None,
-        "slo": None,
+        "events_file": args.events_file,
+        "slo": dict(sorted(slo_objectives.items())) or None,
     }
     report_baseline = metrics_snapshot() if args.run_report else None
     # The summaries cover this run, also when main() runs more than once in
@@ -217,27 +296,59 @@ def _cmd_run(args: argparse.Namespace) -> int:
     stages_before = stage_snapshot()
     occupancy_before = occupancy_snapshot()
     funnel_before = funnel_snapshot()
+    if EVENTS.enabled:
+        # After the baseline snapshot, so the report's events section
+        # charges run_start to this run rather than to history.
+        EVENTS.emit(
+            "run_start",
+            input=args.input_file,
+            backend=args.backend,
+            num_processes=1,
+        )
     start = time.perf_counter()
     fallbacks_before = METRICS.get("worker_host_fallback_total")
     try:
-        result = run_pipeline(
-            config,
-            input_file=args.input_file,
-            output_file=args.output_file,
-            excluded_file=args.excluded_file,
-            text_column=args.text_column,
-            id_column=args.id_column,
-            backend=args.backend,
-            device=args.device,
-            read_batch_size=args.batch_size,
-            device_batch=args.device_batch,
-            buckets=buckets,
-            errors_file=args.errors_file,
-            quiet=args.quiet,
-        )
+        with device_profile(
+            args.trace_device, args.device if args.backend == "device" else "host"
+        ):
+            result = run_pipeline(
+                config,
+                input_file=args.input_file,
+                output_file=args.output_file,
+                excluded_file=args.excluded_file,
+                text_column=args.text_column,
+                id_column=args.id_column,
+                backend=args.backend,
+                device=args.device,
+                read_batch_size=args.batch_size,
+                device_batch=args.device_batch,
+                buckets=buckets,
+                errors_file=args.errors_file,
+                quiet=args.quiet,
+            )
+        if EVENTS.enabled:
+            EVENTS.emit("run_end", exit_code=0)
     except PipelineError as e:
         print(f"Pipeline run failed: {e}", file=sys.stderr)
+        if EVENTS.enabled:
+            EVENTS.emit("fatal", reason="pipeline_error", error=str(e))
+            EVENTS.emit("run_end", exit_code=1)
+            flight_record(
+                args.output_file, rank=0, reason="pipeline_error", exc=e
+            )
         return 1
+    except BaseException as e:
+        # Anything else escaping here (KeyboardInterrupt, MemoryError, a
+        # plain bug) unwinds the interpreter: leave the flight-recorder
+        # dump behind first, then let it propagate.
+        if EVENTS.enabled:
+            EVENTS.emit("fatal", reason=type(e).__name__)
+            flight_record(args.output_file, rank=0, reason="unhandled", exc=e)
+        raise
+    finally:
+        TRACER.close()
+        SLO.close()  # final evaluation tick, then disarm
+        EVENTS.close()  # flushes the journal spill; counters stay in METRICS
 
     elapsed = time.perf_counter() - start
     total = result.received
@@ -294,6 +405,31 @@ def _cmd_run(args: argparse.Namespace) -> int:
                 format_funnel_summary(
                     funnel_before, order=[s.type for s in config.pipeline]
                 ),
+                file=sys.stderr,
+            )
+        if args.trace:
+            print(f"Trace written -> {args.trace} "
+                  "(load at https://ui.perfetto.dev)", file=sys.stderr)
+        if args.events_file:
+            emitted = int(METRICS.get("events_emitted_total"))
+            dropped = int(METRICS.get("events_dropped_total"))
+            line = f"Event journal -> {args.events_file} ({emitted} events"
+            if dropped:
+                line += f", {dropped} dropped"
+            print(line + ")", file=sys.stderr)
+        if slo_objectives:
+            alerts = int(METRICS.get("slo_alerts_total"))
+            worst = min(
+                (
+                    METRICS.get(f"slo_budget_remaining_{k}")
+                    for k in slo_objectives
+                ),
+                default=1.0,
+            )
+            print(
+                f"SLO: {len(slo_objectives)} objective(s), {alerts} "
+                f"alert(s), {worst * 100.0:.1f}% of the tightest error "
+                "budget left.",
                 file=sys.stderr,
             )
 

@@ -16,11 +16,6 @@ import yaml
 
 from ..errors import ConfigError, ConfigValidationError
 
-#: The closed SLO objective vocabulary (the keys of the JAX package's
-#: ``utils/slo.py`` ``SLO_KEYS``; the port has no SLO engine yet, so only the
-#: names are kept, for config validation).
-SLO_KEYS = ("availability", "p99_latency_s", "throughput_floor")
-
 __all__ = [
     "PipelineConfig",
     "StepConfig",
@@ -468,6 +463,11 @@ class SLOConfig:
     _KNOBS = ("fast_window_s", "slow_window_s", "burn_threshold", "tick_s")
 
     def validate(self) -> None:
+        # The objective vocabulary is owned by utils.slo (single source of
+        # truth with --slo parsing); imported lazily to keep config loading
+        # free of the engine module.
+        from ..utils.slo import SLO_KEYS
+
         for key, target in self.objectives.items():
             if key not in SLO_KEYS:
                 raise ConfigValidationError(

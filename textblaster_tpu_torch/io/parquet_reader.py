@@ -37,6 +37,7 @@ from ..errors import ConfigError, ParquetError, PipelineError, UnexpectedError
 from ..resilience.faults import FAULTS
 from ..resilience.retry import RetryPolicy
 from ..utils.metrics import METRICS
+from ..utils.trace import TRACER
 from .base import BaseReader
 
 logger = logging.getLogger(__name__)
@@ -132,7 +133,8 @@ class ParquetReader(BaseReader):
 
         t0 = time.perf_counter()
         try:
-            return self.retry_policy.run(fetch, seam="read")
+            with TRACER.span("read", {"kind": "fetch", "group": group}):
+                return self.retry_policy.run(fetch, seam="read")
         finally:
             METRICS.inc("stage_read_seconds", time.perf_counter() - t0)
 
@@ -234,7 +236,8 @@ class ParquetReader(BaseReader):
             # every yield), or the read-stage counter would absorb the rest
             # of the pipeline.
             t0 = time.perf_counter()
-            items = self._decode_batch(batch, has)
+            with TRACER.span("read", {"kind": "decode", "rows": batch.num_rows}):
+                items = self._decode_batch(batch, has)
             METRICS.inc("stage_read_seconds", time.perf_counter() - t0)
             yield from items
 

@@ -27,6 +27,7 @@ import pyarrow.parquet as pq
 from ..data_model import TextDocument
 from ..errors import ParquetError
 from ..utils.metrics import METRICS
+from ..utils.trace import TRACER
 from .base import BaseWriter
 
 __all__ = ["ParquetWriter", "OUTPUT_SCHEMA"]
@@ -67,7 +68,8 @@ class ParquetWriter(BaseWriter):
             return
         t0 = time.perf_counter()
         try:
-            self._write_batch_inner(documents)
+            with TRACER.span("write", {"rows": len(documents)}):
+                self._write_batch_inner(documents)
         finally:
             # Timed here (not in callers) so every write path lands in the
             # stage counter exactly once.

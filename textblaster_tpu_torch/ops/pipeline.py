@@ -48,6 +48,18 @@ seconds, the in-flight and pack-queue gauges, host fallbacks and tails,
 and the device-side seam of the per-filter funnel.  Where a stage counter
 times the same interval as a ``counters["seconds"]`` key, one pair of
 clock reads feeds both.
+
+Its trace and journal seams are the JAX package's too (:mod:`..utils.trace`,
+:mod:`..utils.events`): the ``pack``, ``dispatch``, ``device_dispatch``,
+``device_wait`` and ``post`` spans, the ``inflight_batches`` and
+``queue_depth_pack`` counters, and the ``ladder_split`` / ``ladder_host``
+instants and events.  With the trace (``--trace``) or the device trace
+(``--trace-device``) armed on ``cuda``, :meth:`CompiledPipeline.run_batch`
+also turns the two timing events that bracket each batch into a
+``device_batch`` span on the trace's ``device`` track and resolves the
+kernels' own spans, after the batch's own synchronize: no host sync is
+added (one ``synchronize`` of the stream arms the pipeline's
+:class:`~..utils.trace.DeviceClock`).
 """
 
 from __future__ import annotations
@@ -81,8 +93,10 @@ from ..resilience.breaker import CircuitBreaker
 from ..resilience.faults import FAULTS
 from ..resilience.retry import RetryPolicy
 from ..resilience.watchdog import WATCHDOG
+from ..utils.events import EVENTS
 from ..utils.metrics import FILTER_DROP_PREFIX, METRICS
 from ..utils.overlap import prefetch_iter, shared_pack_pool
+from ..utils.trace import KERNEL_SPANS, TRACER, DeviceClock
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
 from . import scan, sort
@@ -403,6 +417,10 @@ class CompiledPipeline:
         self._fns: Dict[Tuple[int, int], Callable] = {}
         self.counters = _new_counters()
         self._pack_lock = threading.Lock()
+        # Maps the batches' CUDA events onto the trace clock; armed by the
+        # first batch run with a trace armed (run_batch).
+        self.device_clock: Optional[DeviceClock] = None
+        self._batch_seq = 0
 
         if self.device.type == "cuda":
             # Build and load the kernels now, so that a failure raises here
@@ -598,22 +616,36 @@ class CompiledPipeline:
         self, batch: PackedBatch, phase: int = 0, stream=None
     ) -> Tuple[Dict[str, np.ndarray], float, float]:
         """Upload, device function and download of one batch:
-        ``(host stats, host seconds, device seconds)``.
+        ``(host stats, host seconds, device seconds)``, inside a
+        ``device_dispatch`` span.
 
         On ``cuda`` the work runs on ``stream`` (the caller's current stream
         when None), bracketed by two CUDA events whose elapsed time is the
         device seconds; the stats come back in one batch of non-blocking
         copies and one wait on the end event, which waits on that stream
         only (with the watchdog armed, a poll of the event bounded by the
-        ``device_fetch`` deadline comes first).  On the CPU the device
-        seconds are 0."""
+        ``device_fetch`` deadline comes first).  With a trace armed, the
+        two events become the batch's device span after that wait
+        (:meth:`_device_spans`).  On the CPU the device seconds are 0."""
         t0 = time.perf_counter()
+        args = {"bucket": batch.max_len, "rows": batch.batch_size, "phase": phase}
         if self.device.type != "cuda":
-            stats = self.fetch(self.dispatch_batch(batch, phase))
+            with TRACER.span("device_dispatch", args):
+                stats = self.fetch(self.dispatch_batch(batch, phase))
             return stats, time.perf_counter() - t0, 0.0
+        traced = TRACER.enabled or KERNEL_SPANS.enabled
+        if traced:
+            self._batch_seq += 1
+            args["batch"] = self._batch_seq
         with torch.cuda.device(self.device):
             s = stream if stream is not None else torch.cuda.current_stream()
-            with torch.cuda.stream(s):
+            with torch.cuda.stream(s), TRACER.span("device_dispatch", args):
+                if traced and (self.device_clock is None or not self.device_clock.current()):
+                    # The anchor goes on an idle stream: this one, after a
+                    # synchronize (once a pipeline and trace).
+                    s.synchronize()
+                    self.device_clock = DeviceClock()
+                    self.device_clock.anchor(s)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record(s)
@@ -626,8 +658,24 @@ class CompiledPipeline:
                     with WATCHDOG.stage_beat("device_fetch"):
                         WATCHDOG.wait_device_ready("device_fetch", (end,))
                 end.synchronize()
+            if traced:
+                self._device_spans(s, start, end, args)
         stats = {k: v.numpy() for k, v in host.items()}
         return stats, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+    def _device_spans(self, stream, start, end, args) -> None:
+        """One batch's device spans, after its ``end.synchronize()``: the
+        ``device_batch`` span on the trace's ``device`` track, and under
+        ``--trace-device`` the batch's and its kernels' spans.  A CUDA
+        event that cannot be read raises."""
+        clock = self.device_clock
+        clock.settle(stream)
+        if TRACER.enabled:
+            TRACER.device_span(
+                "device_batch", clock.to_us(start), start.elapsed_time(end) * 1000.0, args
+            )
+        if KERNEL_SPANS.enabled:
+            KERNEL_SPANS.resolve(clock, start, end, args)
 
     # --- degradation ladder -------------------------------------------------
 
@@ -705,7 +753,8 @@ class CompiledPipeline:
                 if dispatcher is None:
                     return self.run_batch(batch, phase)
                 p = dispatcher.submit(batch, phase)
-            return self._result(p, dispatcher)
+            with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}):
+                return self._result(p, dispatcher)
 
         return self._retry.run(
             attempt, seam="device", on_retry=lambda e, _: _drop_frames(e)
@@ -764,11 +813,12 @@ class CompiledPipeline:
         if isinstance(pending, Future):
             t0 = time.perf_counter()
             try:
-                dispatcher.wait(pending)
+                with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}):
+                    dispatcher.wait(pending)
+                    exc = pending.exception()
             except StallError as e:
                 first = e
             else:
-                exc = pending.exception()
                 if exc is None:
                     pending = pending.result()
                 else:
@@ -802,6 +852,12 @@ class CompiledPipeline:
         if self._split_retry and len(batch.docs) > 1:
             # Split rung: both halves pack to the same padded row count.
             METRICS.inc("resilience_ladder_split_total")
+            TRACER.instant(
+                "ladder_split", {"bucket": batch.max_len, "phase": phase}
+            )
+            if EVENTS.enabled:
+                EVENTS.emit("ladder_split", batch=batch.max_len,
+                            depth=len(batch.docs), phase=phase)
             sub_rows = self._split_rows(batch.batch_size)
             mid = (len(batch.docs) + 1) // 2
             for part in (batch.docs[:mid], batch.docs[mid:]):
@@ -823,6 +879,11 @@ class CompiledPipeline:
             outcomes.extend(self._host_rerun(batch.docs))
 
         if fell_to_host:
+            TRACER.instant(
+                "ladder_host", {"bucket": batch.max_len, "phase": phase}
+            )
+            if EVENTS.enabled:
+                EVENTS.emit("ladder_host", batch=batch.max_len, phase=phase)
             self._breaker.record_failure("device batch fell to host rung")
         else:
             self._breaker.record_success()
@@ -1340,7 +1401,8 @@ class CompiledPipeline:
         and ``stage_pack_seconds``."""
         t0 = time.perf_counter()
         try:
-            return pack_documents(docs, batch_size=batch_size, max_len=max_len)
+            with TRACER.span("pack", {"rows": len(docs), "bucket": max_len}):
+                return pack_documents(docs, batch_size=batch_size, max_len=max_len)
         finally:
             dt = time.perf_counter() - t0
             with self._pack_lock:
@@ -1492,17 +1554,19 @@ class CompiledPipeline:
                     nonlocal inflight
                     kind, payload = window.popleft()
                     ta = time.perf_counter()
-                    if kind == "batch":
-                        inflight -= 1
-                        METRICS.set("inflight_batches", inflight)
-                        batch, pending = payload
-                        del payload
-                        outcomes, alive = self._execute_packed(
-                            batch, phase, pending, dispatcher
-                        )
-                        survivors.extend(alive)
-                    else:
-                        outcomes = _process_fallback(payload)
+                    with TRACER.span("post", {"kind": kind, "phase": phase}):
+                        if kind == "batch":
+                            inflight -= 1
+                            METRICS.set("inflight_batches", inflight)
+                            TRACER.counter("inflight_batches", inflight)
+                            batch, pending = payload
+                            del payload
+                            outcomes, alive = self._execute_packed(
+                                batch, phase, pending, dispatcher
+                            )
+                            survivors.extend(alive)
+                        else:
+                            outcomes = _process_fallback(payload)
                     dt = time.perf_counter() - ta
                     secs["drain"] += dt
                     METRICS.inc("stage_post_seconds", dt)
@@ -1528,13 +1592,20 @@ class CompiledPipeline:
                                 batch = item
                             if overlapped:
                                 METRICS.set("queue_depth_pack", src.qsize())
+                                TRACER.counter("queue_depth_pack", src.qsize())
                             n_batches += 1
                             td = time.perf_counter()
-                            pending = self._dispatch_window(batch, phase, dispatcher)
+                            with TRACER.span(
+                                "dispatch",
+                                {"bucket": batch.max_len,
+                                 "rows": batch.batch_size, "phase": phase},
+                            ):
+                                pending = self._dispatch_window(batch, phase, dispatcher)
                             METRICS.inc("stage_dispatch_seconds", time.perf_counter() - td)
                             window.append(("batch", (batch, pending)))
                             inflight += 1
                             METRICS.set("inflight_batches", inflight)
+                            TRACER.counter("inflight_batches", inflight)
                         if fallback:
                             window.append(("host", fallback))
                         # Host groups at the front never block on the
@@ -1562,6 +1633,10 @@ class CompiledPipeline:
         finally:
             if dispatcher is not None:
                 dispatcher.close()
+            if self.device_clock is not None:
+                # The device clock's re-anchors so far: the drift between
+                # the device's timer and the trace clock.
+                TRACER.instant("device_clock", self.device_clock.stats())
 
 
 class _DispatchThread:
@@ -1707,6 +1782,10 @@ def process_documents_device(
         pipeline = CompiledPipeline(
             config, buckets=buckets, batch_size=device_batch, device=device
         )
+    # Nothing to warm up: the kernels were built with the pipeline, so it is
+    # ready (the JAX package's maybe_warmup sets the gauge alike when it
+    # skips warmup; /healthz reads it).
+    METRICS.set("pipeline_warmup_done", 1)
 
     if pipeline.fully_host or not pipeline.device_steps:
         if pipeline.device_steps and pipeline.fully_host:

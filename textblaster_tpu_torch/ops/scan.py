@@ -27,7 +27,9 @@ on the card: ``TEXTBLAST_DEPFUSE=off`` the fused schedule (callers gate on
 the chain off too, as in the JAX package).
 
 ``LAUNCHES`` counts kernel launches per kernel; only a launch on the card
-adds to it.
+adds to it.  Under ``--trace-device`` each launch is also bracketed by two
+timing events (``utils/trace.py`` ``KERNEL_SPANS``), named by the launch's
+``SHAPE_LAUNCHES`` key.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import torch
 
 from ..kernels.build import check
+from ..utils.trace import KERNEL_SPANS
 from .device import shift_scan_tuple
 
 __all__ = [
@@ -184,10 +187,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _count(kernel: str, rows: int, width: int, *variant: int) -> None:
+def _span(device: torch.device):
+    """The start event of a launch's device span when ``--trace-device`` is
+    armed (:data:`~..utils.trace.KERNEL_SPANS`), else None: one attribute
+    check."""
+    return KERNEL_SPANS.begin(device) if KERNEL_SPANS.enabled else None
+
+
+def _count(kernel: str, rows: int, width: int, *variant: int, span=None, device=None) -> None:
     LAUNCHES[kernel] += 1
     key = (kernel, rows, width, *variant)
     SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
+    if span is not None:
+        KERNEL_SPANS.end(span, device, kernel, key)
 
 
 # --- the per-scan kernels (csrc/scan.cu) ----------------------------------------
@@ -273,10 +285,11 @@ def affine_hash_scan(
         return outs
     cluster, threads, segs = scan_geometry(length, "affine")
     lib = _scan_lib()
+    span = _span(m.device)
     with torch.cuda.device(m.device):
         err = lib.tb_affine_scan(*ptrs, rows, length, k, cluster, threads, segs, _stream(m))
     check(err, "affine_hash_scan")
-    _count("affine_scan", rows, length, k)
+    _count("affine_scan", rows, length, k, span=span, device=m.device)
     return outs
 
 
@@ -298,11 +311,12 @@ def dfa_compose_scan(fns: torch.Tensor, n_states: int) -> torch.Tensor:
         return out
     cluster, threads, segs = scan_geometry(length, "dfa")
     lib = _scan_lib()
+    span = _span(fns.device)
     with torch.cuda.device(fns.device):
         err = lib.tb_dfa_scan(fns.data_ptr(), out.data_ptr(), rows, length, n_states, cluster,
                               threads, segs, _stream(fns))
     check(err, "dfa_compose_scan")
-    _count("dfa_scan", rows, length, n_states)
+    _count("dfa_scan", rows, length, n_states, span=span, device=fns.device)
     return out
 
 
@@ -480,11 +494,12 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
             for v in (_KINDS[g["kind"]], len(g["xs"]), int(s[4]), g.get("n_states", 0))]
     ptrs = (ctypes.c_void_p * (len(xs) + len(outs)))(*(t.data_ptr() for t in xs + tuple(outs)))
     lib = _fused_lib()
+    span = _span(dev)
     with torch.cuda.device(dev):
         err = lib.tb_fused_scan((ctypes.c_int * len(code))(*code), len(groups), ptrs, len(xs),
                                 len(outs), rows, length, fused_geometry(length), _stream(xs[0]))
     check(err, "fused_scan")
-    _count("fused_scan", rows, length)
+    _count("fused_scan", rows, length, span=span, device=dev)
     return res
 
 
@@ -1079,13 +1094,14 @@ def chain_scan(passes: Sequence[dict], site: Optional[str] = None
         args = (handle, prog.ext_t(*[x.data_ptr() for x in ext]), prog.n_ext,
                 prog.slot_t(*ptrs), prog.n_slots, rows, length, geo.cluster, geo.threads,
                 geo.items, int(geo.tap_smem), _stream(ext[0]))
+        span = _span(dev)
         if dev.index == torch.cuda.current_device():
             err = lib.tb_chain_launch(*args)
         else:
             with torch.cuda.device(dev):
                 err = lib.tb_chain_launch(*args)
         check(err, "chain_scan")
-        _count("chain_scan", rows, length)
+        _count("chain_scan", rows, length, span=span, device=dev)
         CHAIN_SITE_LAUNCHES[site] = CHAIN_SITE_LAUNCHES.get(site, 0) + 1
         CHAIN_SHAPE_LAUNCHES[(site, length)] = CHAIN_SHAPE_LAUNCHES.get((site, length), 0) + 1
     return [[tuple(outs[s] for s in g_slots) for g_slots in p_layout] for p_layout in prog.layout]

@@ -24,6 +24,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.trace import KERNEL_SPANS
+
 __all__ = ["LAUNCHES", "REG_WIDTH2", "REG_WIDTH3", "SHAPE_LAUNCHES", "SortGeometry",
            "sort2", "sort2_plain", "sort3", "sort3_plain", "sort_geometry"]
 
@@ -144,9 +146,12 @@ def _launch(name: str, ks: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]
             scratch.data_ptr() if scratch is not None else None, rows, m, mp,
             *(g[1:] if g is not None else (0, 0, 0, 0)),
             torch.cuda.current_stream(k1.device).cuda_stream)
+    span = KERNEL_SPANS.begin(k1.device) if KERNEL_SPANS.enabled else None
     check(_on_device(k1.device, fn, args), name)
     LAUNCHES[name] += 1
     SHAPE_LAUNCHES[(name, rows, m)] = SHAPE_LAUNCHES.get((name, rows, m), 0) + 1
+    if span is not None:
+        KERNEL_SPANS.end(span, k1.device, name, (name, rows, m))
     return outs
 
 

@@ -1,7 +1,7 @@
 """Circuit breaker for the device execution path.
 
-The port's copy of the JAX package's ``resilience/breaker.py`` (its trace
-and event hooks wait for the observability layer).
+The port's copy of the JAX package's ``resilience/breaker.py``, with its
+trace instants and journal events.
 
 A device batch that exhausts its whole degradation ladder (retry -> split ->
 host-oracle rerun) still *completes* — the host rung is bit-exact — but each
@@ -28,7 +28,9 @@ import logging
 import threading
 import time
 
+from ..utils.events import EVENTS
 from ..utils.metrics import METRICS
+from ..utils.trace import TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -97,6 +99,9 @@ class CircuitBreaker:
                 return False
             self._state = _HALF_OPEN
         METRICS.inc("resilience_breaker_probe_total")
+        TRACER.instant("breaker_probe", {"breaker": self.name})
+        if EVENTS.enabled:
+            EVENTS.emit("breaker_probe", seam=self.name)
         logger.warning(
             "Circuit breaker '%s' half-open after %.1fs cooldown; probing "
             "the device with one batch.",
@@ -112,6 +117,9 @@ class CircuitBreaker:
                 return
             self._state = _CLOSED
         METRICS.inc("resilience_breaker_recoveries_total")
+        TRACER.instant("breaker_recovery", {"breaker": self.name})
+        if EVENTS.enabled:
+            EVENTS.emit("breaker_recovery", seam=self.name)
         METRICS.set("resilience_breaker_open", 0)
         logger.warning(
             "Circuit breaker '%s' closed: half-open probe succeeded; "
@@ -137,6 +145,9 @@ class CircuitBreaker:
                 reopened = False
         if reopened:
             METRICS.set("resilience_breaker_open", 1)
+            TRACER.instant("breaker_reopen", {"breaker": self.name})
+            if EVENTS.enabled:
+                EVENTS.emit("breaker_reopen", seam=self.name, cause=cause)
             logger.error(
                 "Circuit breaker '%s' reopened: half-open probe failed%s; "
                 "cooling down for %.1fs.",
@@ -146,6 +157,11 @@ class CircuitBreaker:
             )
             return
         METRICS.inc("resilience_breaker_trips_total")
+        TRACER.instant("breaker_trip",
+                       {"breaker": self.name, "cause": cause})
+        if EVENTS.enabled:
+            EVENTS.emit("breaker_trip", seam=self.name,
+                        failures=self.threshold, cause=cause)
         METRICS.set("resilience_breaker_open", 1)
         logger.error(
             "Circuit breaker '%s' tripped after %d consecutive failures%s; "

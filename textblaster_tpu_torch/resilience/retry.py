@@ -1,7 +1,7 @@
 """Retry policy: exponential backoff + jitter with an error classifier.
 
-The port's copy of the JAX package's ``resilience/retry.py`` (its trace and
-event hooks wait for the observability layer).  The classifier is the
+The port's copy of the JAX package's ``resilience/retry.py``, with its trace
+instants and journal events.  The classifier is the
 load-bearing piece: only *transient* faults — device out-of-memory, OS-level
 I/O hiccups, watchdog stalls — are worth re-attempting.  Deterministic
 pipeline errors (a filter decision, a config problem) repeat identically on
@@ -43,7 +43,9 @@ from ..errors import (
     StepError,
 )
 from ..kernels.build import BuildError
+from ..utils.events import EVENTS
 from ..utils.metrics import METRICS
+from ..utils.trace import TRACER
 from .watchdog import WATCHDOG
 
 logger = logging.getLogger(__name__)
@@ -247,11 +249,22 @@ class RetryPolicy:
                 WATCHDOG.escalated(e)
                 if attempt >= self.max_retries:
                     METRICS.inc("resilience_retry_exhausted_total")
+                    if EVENTS.enabled:
+                        EVENTS.emit("retry_exhausted", seam=seam,
+                                    attempts=attempt + 1,
+                                    error=type(e).__name__)
                     raise RetryExhaustedError(seam, attempt + 1, e) from e
                 delay = self.delay_for(attempt)
                 attempt += 1
                 METRICS.inc("resilience_retries_total")
                 METRICS.inc(f"resilience_retries_{seam}_total")
+                TRACER.instant(
+                    "retry", {"seam": seam, "attempt": attempt,
+                              "error": type(e).__name__}
+                )
+                if EVENTS.enabled:
+                    EVENTS.emit("retry", seam=seam, attempt=attempt,
+                                error=type(e).__name__)
                 logger.warning(
                     "Transient fault at seam '%s' (attempt %d/%d, backing off "
                     "%.3fs): %s",

@@ -1,7 +1,7 @@
 """Stall watchdog: per-stage deadlines over the host-side blocking waits.
 
-The port's copy of the JAX package's ``resilience/watchdog.py`` (its trace
-and event hooks wait for the observability layer).  The rest of the
+The port's copy of the JAX package's ``resilience/watchdog.py``, with its
+trace instants and journal events.  The rest of the
 resilience stack handles failures that *raise*; this module handles
 failures that *hang*.  The overlapped pipeline has four blocking seams
 where a wedged dependency stalls the run silently — the device fetch (the
@@ -44,7 +44,9 @@ from contextlib import contextmanager
 from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional
 
 from ..errors import StallError
+from ..utils.events import EVENTS
 from ..utils.metrics import METRICS
+from ..utils.trace import TRACER
 
 __all__ = ["ENV_KNOB", "STAGES", "StageWatchdog", "WATCHDOG"]
 
@@ -150,6 +152,19 @@ class StageWatchdog:
     ) -> None:
         """Record a stall and raise the typed :class:`StallError`."""
         METRICS.inc("watchdog_stalls_total")
+        TRACER.instant(
+            "watchdog_stall",
+            {
+                "stage": stage,
+                "elapsed_s": round(elapsed_s, 3),
+                "deadline_s": deadline_s,
+                "detail": detail,
+            },
+        )
+        if EVENTS.enabled:
+            EVENTS.emit("watchdog_stall", stage=stage,
+                        elapsed_s=round(elapsed_s, 3),
+                        deadline_s=deadline_s, detail=detail)
         raise StallError(
             stage, elapsed_s=elapsed_s, deadline_s=deadline_s, detail=detail
         )
@@ -160,6 +175,9 @@ class StageWatchdog:
         retryable exception unconditionally."""
         if isinstance(exc, StallError):
             METRICS.inc("watchdog_escalations_total")
+            TRACER.instant("watchdog_escalation", {"stage": exc.stage})
+            if EVENTS.enabled:
+                EVENTS.emit("watchdog_escalation", reason=exc.stage)
 
     # -- heartbeats (fault-injector integration) ---------------------------
 

@@ -6,9 +6,9 @@ console at WARN, JSON lines to ``./log/<name>.log`` with daily rotation, and
 the global level taken from an env var (``TEXTBLAST_LOG``, standing in for
 ``RUST_LOG``).
 
-The port's copy of the JAX package's ``utils/logging_setup.py``, without the
-handler that mirrors warnings into the operational event journal (the port
-has no journal yet).
+The port's copy of the JAX package's ``utils/logging_setup.py``, with its
+handler that mirrors warnings into the port's operational event journal
+(``utils/events.py`` ``JournalLogHandler``).
 """
 
 from __future__ import annotations
@@ -59,6 +59,14 @@ def init_logging(name: str, log_dir: str = "./log") -> None:
         logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
     )
     root.addHandler(console)
+
+    # WARNING+ records mirror into the operational event journal (kind
+    # "log") once EVENTS is armed; the handler self-gates on
+    # EVENTS.enabled, so an unarmed run pays one attribute check per
+    # warning — not per log call.
+    from .events import JournalLogHandler
+
+    root.addHandler(JournalLogHandler())
 
     try:
         os.makedirs(log_dir, exist_ok=True)

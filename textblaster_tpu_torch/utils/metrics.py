@@ -23,13 +23,18 @@ Seams that count here in the port:
   ``worker_host_tail_total`` and the device-side funnel seam;
 * TokenCounter: ``worker_tokenizer_standin_total``;
 * resilience (``resilience/``): the ``resilience_*``, ``watchdog_*`` and
-  ``deadletter_rows_total`` series.
+  ``deadletter_rows_total`` series;
+* the trace, the event journal and the SLO engine (``utils/trace.py``,
+  ``utils/events.py``, ``utils/slo.py``): ``trace_events_dropped_total``,
+  ``events_*`` and ``slo_*``.  :func:`metrics_snapshot` flushes an armed
+  SLO engine first, the run report's ``events`` and ``slo`` sections read
+  them, and the HTTP handler serves ``/healthz`` and ``/slo`` beside
+  ``/metrics``.
 
-The layers the port does not have yet (telemetry, the profiler, the event
-journal and the SLO engine) have no seam here: their report sections
-(``latency``, ``device_profile``, ``events``, ``slo``) keep the JAX
-package's keys and read what the JAX package reads with those layers off,
-and the HTTP handler serves ``/metrics`` only.
+The layers the port does not have yet (telemetry and the profiler) have no
+seam here: their report sections (``latency``, ``device_profile``) keep the
+JAX package's keys and read what the JAX package reads with those layers
+off, and the handler has no ``/telemetry``.
 """
 
 from __future__ import annotations
@@ -903,8 +908,17 @@ def metrics_snapshot() -> Dict[str, float]:
     ``name::sum`` / ``name::count`` keys: every one is a monotone count, so
     the cross-host sum-merge aggregates histograms bucket-wise exactly like
     counters (the keys can't collide with real metric names — '::' never
-    appears in one).  (The JAX package flushes its SLO engine first; the
-    port has none yet.)"""
+    appears in one)."""
+    # Flush the SLO engine first (when armed): its counters are published
+    # on evaluation ticks, and a run shorter than one tick would otherwise
+    # hand the report a snapshot with stale zeros.
+    try:
+        from .slo import SLO
+
+        if SLO.enabled:
+            SLO.evaluate()
+    except Exception:  # noqa: BLE001 — snapshot must not fail on a tick
+        pass
     return METRICS.all_values()
 
 
@@ -1074,9 +1088,16 @@ def _slo_section(
     baseline: Optional[Dict[str, float]] = None,
     values: Optional[Dict[str, float]] = None,
 ) -> Dict[str, object]:
-    """The ``slo`` report section: empty, as the JAX package's is with no
-    objective declared (the port has no SLO engine yet)."""
-    return {}
+    """The ``slo`` report section, built by utils/slo.py.  Imported lazily
+    (slo.py imports this module at runtime; the reverse edge only exists
+    inside a report build) and never allowed to fail the report."""
+    try:
+        from .slo import slo_report
+
+        return slo_report(baseline, values)
+    except Exception as e:  # noqa: BLE001 — observability must not kill a run
+        logger.warning("slo section skipped: %s", e)
+        return {}
 
 
 def snapshot_delta(
@@ -1461,15 +1482,35 @@ class _Handler(BaseHTTPRequestHandler):
         return self.path.split("?", 1)[0] == "/metrics"
 
     def _respond(self, send_body: bool) -> None:
-        # /metrics only: the JAX package's /telemetry, /healthz and /slo
-        # belong to layers the port does not have yet.
-        if not self._is_metrics_path():
+        path = self.path.split("?", 1)[0]
+        status = 200
+        if self._is_metrics_path():
+            body = METRICS.render().encode("utf-8")
+            ctype = "text/plain; version=0.0.4"
+        elif path == "/healthz":
+            # Live/ready verdict (200 ready, 503 starting/degraded) with a
+            # component breakdown.  Imported lazily: slo.py imports this
+            # module, the reverse edge only exists inside a request.
+            from .slo import health_snapshot
+
+            status, health = health_snapshot()
+            body = (json.dumps(health, sort_keys=True) + "\n").encode("utf-8")
+            ctype = "application/json"
+        elif path == "/slo":
+            # Live SLO engine state (objectives, burn rates, alerts).
+            from .slo import SLO
+
+            body = (
+                json.dumps(SLO.snapshot(), sort_keys=True) + "\n"
+            ).encode("utf-8")
+            ctype = "application/json"
+        else:
+            # The JAX package's /telemetry waits for the port's telemetry.
             self.send_response(404)
             self.end_headers()
             return
-        body = METRICS.render().encode("utf-8")
-        self.send_response(200)
-        self.send_header("Content-Type", "text/plain; version=0.0.4")
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         if send_body:

@@ -1,8 +1,8 @@
 """Bounded producer/consumer plumbing for the overlapped host pipeline.
 
 Copy of the JAX package's ``utils/overlap.py`` with its queue-depth gauges
-(``queue_depth_read``, ``queue_depth_write``) and without its trace hooks
-(that layer is not ported yet).
+(``queue_depth_read``, ``queue_depth_write``) and its trace counter
+(``queue_depth_write``).
 
 The device path's host work is three independent stages — read Parquet,
 pack batches, write outcomes — each of which spends most of its time in
@@ -49,6 +49,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 from ..resilience.watchdog import WATCHDOG
 from .metrics import METRICS
+from .trace import TRACER
 
 __all__ = ["prefetch_iter", "ThreadedWriter", "shared_pack_pool"]
 
@@ -221,6 +222,7 @@ class ThreadedWriter:
             finally:
                 self._queue.task_done()
                 METRICS.set("queue_depth_write", self._queue.qsize())
+                TRACER.counter("queue_depth_write", self._queue.qsize())
 
     def _raise_pending(self) -> None:
         if self._error is not None:
@@ -237,6 +239,7 @@ class ThreadedWriter:
         else:
             self._queue.put(list(outcomes))
         METRICS.set("queue_depth_write", self._queue.qsize())
+        TRACER.counter("queue_depth_write", self._queue.qsize())
 
     def close(self) -> None:
         # Also after a write error closed the wrapper: the drain thread is
