@@ -48,8 +48,8 @@ Phases (any failure exits non-zero without the final result line):
    ``configs/pipeline_config_offline.yaml``: under the chain schedule (the
    default) over the whole corpus, windowed (the default: reader thread,
    pack pool, a dispatch thread on its own CUDA stream with two batches in
-   flight, writer threads) and serial (``TEXTBLAST_NO_OVERLAP=1``), twice
-   each in turns (windowed, serial, serial, windowed); over its first 5,000
+   flight, writer threads), then serial (``TEXTBLAST_NO_OVERLAP=1``); over
+   its first 3,000
    documents, windowed, under the fused schedule
    (``TEXTBLAST_DEPFUSE=off``), the staged one (``TEXTBLAST_FUSED=off``)
    and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``;
@@ -92,7 +92,31 @@ Phases (any failure exits non-zero without the final result line):
    over a missing input must exit 1 with ``Pipeline run failed:``.  Then
    the host seconds of one registry increment (the unit cost of a metric
    hook), over 200,000 of them.
-7. Fault phase: the degradation ladder, the breaker and the watchdog,
+7. Auto-geometry: ``run_pipeline(auto_geometry=True)`` over the first
+   5,000 documents (the whole calibration sample), windowed, chain
+   schedule, host tails on, beside the default geometry's run of the same
+   documents; both held to the host oracle (parity 1.0) and to each other
+   (every column, by id).  Prints the calibrated buckets and batch sizes,
+   and for both runs docs/s, padding waste, batches per bucket, host
+   tails and peak device memory.  Every (kernel, rows, width, variant)
+   the calibrated run launched and no default-geometry run did is held to
+   its plain version (``torch.equal``): the per-scan kernels in that
+   variant, ``sort2``, ``fused_scan`` with every call site's list, and
+   ``chain_scan`` with every call site's program on a corpus batch of each
+   calibrated bucket at its rows (probe and generic programs at any shape
+   left over).
+8. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
+   uninterrupted ``cli.main`` run with ``--checkpoint-dir`` and
+   ``--events-file``; ``run_checkpointed`` stopped after 2 chunks and
+   resumed; the same under ``auto_geometry=True`` (a resume without the
+   flag must raise ``CheckpointError``; the resume must not calibrate
+   again; its new kernel shapes are held to the plain versions); one run
+   with ``checkpoint.commit`` armed to raise ``OSError`` once (exactly one
+   checkpoint retry).  Every run's files equal the uninterrupted run's row
+   for row (the calibrated run's by id) and the non-checkpointed CLI
+   run's by id, every column; one ``checkpoint_commit`` journal record a
+   chunk; no checkpoint directory left.
+9. Fault phase: the degradation ladder, the breaker and the watchdog,
    each run with zero backoff and a breaker threshold of 2 and held to a
    fault-free run of the same documents (kept and excluded rows equal by
    id, every column): over the first 2,000 documents a fault-free run
@@ -111,7 +135,7 @@ Phases (any failure exits non-zero without the final result line):
    a fatal ``ValueError`` that must propagate with no dispatch thread
    left.  Each run prints docs/s beside its fault-free run's, the ladder
    and watchdog counters and the launches at the split rows.
-8. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+10. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -135,7 +159,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # gives no int32 rate, so the kernels' integer operations are held to it.
 OPS_PER_S = 67e12
 N_DOCS = int(os.environ.get("CHIP_SMOKE_DOCS", "20000"))
-STAGED_SUBSET = 5000  # the documents of the runs over a subset
+#: The documents of the runs over a subset: 3,000, so that the
+#: auto-geometry and checkpoint phases fit the script's time.
+STAGED_SUBSET = 3000
+#: The auto-geometry phase's documents: the first GEOMETRY_DOCS.
+GEOMETRY_DOCS = 5000
 #: Windowed runs over the first STAGED_SUBSET documents: the fused and the
 #: staged schedules, and the chain schedule with the host tails off.
 SUBSET_RUNS = (("fused", {"TEXTBLAST_DEPFUSE": "off"}), ("staged", {"TEXTBLAST_FUSED": "off"}),
@@ -1123,13 +1151,13 @@ def _ids(path: str):
 def main_path(device: str, rows, work: str):
     """The chain schedule (this port's default) windowed (the default) and
     serial (``TEXTBLAST_NO_OVERLAP=1``, as ``run --no-overlap``) over the
-    whole corpus, twice each in turns (window, serial, serial, window: a
-    drift of the host over the call weighs on both alike); then over the
+    whole corpus, once each (a second pair in turns no longer fits the
+    script's time: compare the two only within one call); then over the
     first ``STAGED_SUBSET`` documents, windowed, the fused schedule
     (``TEXTBLAST_DEPFUSE=off``), the staged one (``TEXTBLAST_FUSED=off``)
     and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``.
-    Every run is held against one host-oracle run, and each windowed chain
-    run against each serial one: the same kept and excluded ids, and the
+    Every run is held against one host-oracle run, and the windowed chain
+    run against the serial one: the same kept and excluded ids, and the
     same bytes."""
     from textblaster_tpu_torch.config.pipeline import load_pipeline_config
     from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
@@ -1149,8 +1177,7 @@ def main_path(device: str, rows, work: str):
 
     serial = {"TEXTBLAST_NO_OVERLAP": "1"}
     runs = [env_run(config, inp, work, tag, device, env)
-            for tag, env in (("chain", None), ("chain_serial", serial),
-                             ("chain_serial_2", serial), ("chain_2", None))]
+            for tag, env in (("chain", None), ("chain_serial", serial))]
     sub = rows[:STAGED_SUBSET]
     sub_inp = os.path.join(work, "corpus_staged.parquet")
     write_parquet(sub_inp, sub)
@@ -1203,18 +1230,16 @@ def main_path(device: str, rows, work: str):
         for k in never[schedule]:
             if run["launches"][k] != 0:
                 fail(f"the {tag} schedule launched {k}")
-    for tag in ("chain", "chain_2"):
-        for ser in ("chain_serial", "chain_serial_2"):
-            for i in (0, 1):
-                a, b = summary[tag]["outputs"][i], summary[ser]["outputs"][i]
-                if _ids(a) != _ids(b):
-                    fail(f"{tag} and {ser} keep or exclude different ids")
-                with open(a, "rb") as fa, open(b, "rb") as fb:
-                    if fa.read() != fb.read():
-                        fail(f"{tag} and {ser} wrote different bytes to {os.path.basename(a)}")
-    if not all(summary[t]["overlapped"] for t in ("chain", "chain_2", *dict(SUBSET_RUNS))):
+    for i in (0, 1):
+        a, b = summary["chain"]["outputs"][i], summary["chain_serial"]["outputs"][i]
+        if _ids(a) != _ids(b):
+            fail("chain and chain_serial keep or exclude different ids")
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"chain and chain_serial wrote different bytes to {os.path.basename(a)}")
+    if not all(summary[t]["overlapped"] for t in ("chain", *dict(SUBSET_RUNS))):
         fail("a windowed run ran serially")
-    if any(summary[t]["overlapped"] for t in ("chain_serial", "chain_serial_2")):
+    if summary["chain_serial"]["overlapped"]:
         fail("a serial run was windowed")
     if summary["chain"]["host_routes"]["host_routed_astral"] <= 0:
         fail("the u16 wire routed no astral document to the host")
@@ -1224,7 +1249,7 @@ def main_path(device: str, rows, work: str):
     missing = [b for b in DEFAULT_BUCKETS if summary["chain"]["batches_by_bucket"].get(str(b), 0) == 0]
     if missing:
         fail(f"buckets never dispatched: {missing}")
-    return summary
+    return summary, (host_kept, host_excl)
 
 
 # --- the CLI --------------------------------------------------------------------
@@ -1361,8 +1386,11 @@ def cli_phase(rows, work: str, device: str = "cuda"):
     if scraped.get("occupancy_device_batches_total", 0.0) < report["occupancy"]["device_batches"]:
         fail("the scrape shows fewer device batches than the CLI run dispatched")
     missing = os.path.join(work, "no_such_input.parquet")
+    # Its own output paths: a failed run may leave its outputs behind, and
+    # the checkpoint phase reads this run's files.
     rc_missing, out_missing, err_missing = _cli_main(
-        ["run", "-i", missing, "-c", CONFIG, "-o", kept, "-e", excl, "--device", device])
+        ["run", "-i", missing, "-c", CONFIG, "-o", os.path.join(work, "cli_missing_kept.parquet"),
+         "-e", os.path.join(work, "cli_missing_excl.parquet"), "--device", device])
     if rc_missing != 1 or not err_missing.startswith("Pipeline run failed:") \
             or "Traceback" in err_missing:
         fail(f"a missing input gave exit code {rc_missing}: {err_missing[:300]!r}")
@@ -1372,7 +1400,8 @@ def cli_phase(rows, work: str, device: str = "cuda"):
           f"{err_missing.strip()[:80]!r}", flush=True)
     return {"documents": CLI_DOCS, "wall_seconds": wall, "summary_line": m.group(0),
             "report": report, "scrape_bytes": len(body), "scrape_samples": len(scraped),
-            "missing_input": err_missing.strip(), "armed": armed}
+            "missing_input": err_missing.strip(), "armed": armed, "input": inp,
+            "outputs": (kept, excl)}
 
 
 def armed_cli_run(inp, work, device, kept_off, excl_off, rate_off):
@@ -1493,6 +1522,411 @@ def armed_cli_run(inp, work, device, kept_off, excl_off, rate_off):
             "kernel_us": kernel_us, "batch_us": batch_us, "busy": busy,
             "journal_kinds": counts, "slo": report["slo"],
             "healthz": answers["/healthz"], "slo_endpoint": answers["/slo"][1]}
+
+
+# --- auto-geometry and checkpoint/resume -----------------------------------------
+
+CKPT_EVERY = 500  # documents a checkpointed chunk (of the CLI run's CLI_DOCS)
+
+
+def _zero_launches():
+    from textblaster_tpu_torch.ops import scan, sort, stats
+
+    for d in (scan.LAUNCHES, sort.LAUNCHES, stats.DUP_WALK):
+        for k in d:
+            d[k] = 0
+    for d in (scan.SHAPE_LAUNCHES, sort.SHAPE_LAUNCHES, scan.CHAIN_SITE_LAUNCHES,
+              scan.CHAIN_SHAPE_LAUNCHES):
+        d.clear()
+
+
+def auto_run(config, inp: str, work: str, tag: str, device: str):
+    """One ``run_pipeline(..., auto_geometry=True)`` over ``inp``: the
+    calibration pass and its pipeline are the runner's own, so the run's
+    occupancy and host routes come from its report and the ``METRICS``
+    counters (taken relative to a snapshot just before), its launches from
+    the kernel counters (set to 0 just before, read just after)."""
+    import torch
+
+    from textblaster_tpu_torch.ops import scan, sort, stats
+    from textblaster_tpu_torch.runner import run_pipeline
+    from textblaster_tpu_torch.utils.metrics import METRICS, build_run_report, metrics_snapshot
+
+    out = (os.path.join(work, f"{tag}_kept.parquet"), os.path.join(work, f"{tag}_excl.parquet"))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    baseline = metrics_snapshot()
+    routes0 = {k: METRICS.get(k) for k in ("worker_host_tail_total", "worker_host_fallback_total")}
+    t0 = time.perf_counter()
+    res = run_pipeline(config, inp, *out, backend="device", device=device, auto_geometry=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    report = build_run_report(
+        baseline=baseline, wall_time_s=dev_s,
+        counts={"received": res.received, "success": res.success, "filtered": res.filtered,
+                "errors": res.errors, "read_errors": res.read_errors},
+        provenance={"entry": "chip_smoke.py auto_run", "schedule": tag, "device": device},
+    )
+    return {
+        "schedule": tag, "received": res.received, "kept": res.success,
+        "excluded": res.filtered, "errors": res.errors, "read_errors": res.read_errors,
+        "device_seconds": dev_s, "device_docs_per_s": res.received / dev_s,
+        "launches": {**scan.LAUNCHES, **sort.LAUNCHES},
+        "shape_launches": sorted([list(k), v] for k, v in
+                                 {**scan.SHAPE_LAUNCHES, **sort.SHAPE_LAUNCHES}.items()),
+        "chain_shape_launches": sorted(([list(k), v] for k, v in
+                                        scan.CHAIN_SHAPE_LAUNCHES.items()), key=str),
+        "host_tail": int(METRICS.get("worker_host_tail_total") - routes0["worker_host_tail_total"]),
+        "host_fallback": int(METRICS.get("worker_host_fallback_total")
+                             - routes0["worker_host_fallback_total"]),
+        "dup_walk": dict(stats.DUP_WALK),
+        "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20) if device == "cuda" else None,
+        "outputs": out, "report": report,
+    }
+
+
+def _variant_keys(run):
+    return {tuple(k) for k, _ in run["shape_launches"]}
+
+
+def check_new_shapes(corpus, geometry, new, device: str = "cuda"):
+    """Hold every kernel to its plain version (``torch.equal``) at the
+    (kernel, rows, width, variant) keys of ``new``, launched by a
+    calibrated run and by no default run: the per-scan kernels in their
+    variant (k accumulators, DFA states) on full-range operands and maps
+    with stray nibbles, ``sort2`` on keys with ties, ``fused_scan`` with
+    every call site's group list; ``chain_scan`` with every call site's
+    program built by the sites' own builders on a corpus batch of each
+    calibrated bucket at its batch rows, then the probe and generic
+    programs at any new chain shape those did not cover.  Returns the
+    keys checked, by kernel."""
+    import numpy as np
+    import torch
+
+    from textblaster_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(SEED + 7)
+    dev = torch.device(device)
+
+    def full_range(shape):
+        return torch.from_numpy(
+            rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+    def maps(shape, n_states):
+        return packed_maps(rng, shape, n_states, dev, stray=True)
+
+    def same(label, got, want):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if isinstance(g, torch.Tensor):
+                g, w = (g,), (w,)
+            if len(g) != len(w) or not all(x.shape == y.shape and torch.equal(x, y)
+                                           for x, y in zip(g, w)):
+                fail(f"{label} differs from its plain version at a calibrated shape")
+
+    done = {}
+    for key in sorted(new):
+        kernel, rows, width, *variant = key
+        shape = (rows, width)
+        if kernel == "affine_scan":
+            m, accs = full_range(shape), tuple(full_range(shape) for _ in range(variant[0]))
+            same(f"affine_scan {key}", scan.affine_hash_scan(m, accs),
+                 scan.affine_hash_scan_plain(m, accs))
+        elif kernel == "dfa_scan":
+            f = maps(shape, variant[0])
+            same(f"dfa_scan {key}", (scan.dfa_compose_scan(f, variant[0]),),
+                 (scan.dfa_compose_scan_plain(f, variant[0]),))
+        elif kernel == "sort2":
+            check_sort2(rng, rows, width, dev)
+        elif kernel == "fused_scan":
+            for name, make in fused_site_lists(full_range, lambda s, n: maps(s, n),
+                                               shape).items():
+                groups = make()
+                same(f"fused_scan list {name} {key}", scan.fused_scan(groups),
+                     scan.fused_scan_plain(groups))
+        elif kernel != "chain_scan":
+            fail(f"{kernel} launched at a calibrated shape {key} that no check covers")
+        done.setdefault(kernel, []).append(list(key))
+    chain_new = {(r, w) for k, r, w, *_ in new if k == "chain_scan"}
+    covered = set()
+    if chain_new:
+        for bucket, rows in zip(geometry.buckets, geometry.batch_sizes):
+            for name, passes in site_programs(corpus, (rows, bucket), dev).items():
+                got, want = scan.chain_scan(passes), scan.chain_scan_plain(passes)
+                for gp, wp in zip(got, want):
+                    same(f"chain_scan program {name} on a [{rows}, {bucket}] batch", gp, wp)
+                covered.add(tuple(scan._chain_plan(passes)[1][0].shape))
+        for rows, width in sorted(chain_new - covered):
+            vals = torch.from_numpy(rng.integers(0, 97, size=(rows, width)).astype(np.int32)).to(dev)
+            reset = torch.from_numpy((rng.random((rows, width)) < 0.05).astype(np.int32)).to(dev)
+            for label, passes in (("probe", scan.chain_probe_program(vals, reset)),
+                                  ("generic", generic_chain(full_range, maps, (rows, width), dev))):
+                for gp, wp in zip(scan.chain_scan(passes), scan.chain_scan_plain(passes)):
+                    same(f"chain_scan {label} program at [{rows}, {width}]", gp, wp)
+        done["chain_scan"] = sorted([list(s) for s in chain_new])
+        done["chain_scan_site_batches"] = sorted([list(s) for s in covered])
+    return done
+
+
+def auto_geometry_phase(rows, work: str, oracle, default_keys, device: str = "cuda"):
+    """``run_pipeline(auto_geometry=True)`` over the first
+    ``GEOMETRY_DOCS`` documents (the whole calibration sample), windowed,
+    chain schedule, host tails on, beside the default geometry's run of
+    the same documents: the calibrated buckets and batch sizes, padding
+    waste, batches per bucket, host tails, docs/s and peak device memory of
+    both.  Both runs' kept and excluded rows equal the host oracle's by id
+    (text and metadata) and each other's, every column.  Every (kernel,
+    shape, variant) the calibrated run launched that no default run did is
+    held to its plain version (:func:`check_new_shapes`).  Returns the
+    phase's summary and the keys launched so far (``default_keys`` and
+    this phase's)."""
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.ops.geometry import CALIBRATION_SAMPLE, calibrate_geometry
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
+
+    sub = rows[:GEOMETRY_DOCS]
+    inp = os.path.join(work, "corpus_geometry.parquet")
+    write_parquet(inp, sub)
+    config = load_pipeline_config(CONFIG)
+    geo = calibrate_geometry([len(t) for _, t in sub[:CALIBRATION_SAMPLE]], backend=device)
+    runs = {"default": device_run(config, inp, work, "geometry_default", device),
+            "auto": auto_run(config, inp, work, "geometry_auto", device)}
+    host_kept, host_excl = oracle
+    ids = {r[0] for r in sub}
+    for tag, run in runs.items():
+        run["decision_parity"], equal = _parity(run, host_kept, host_excl, ids)
+        if run["decision_parity"] != 1.0 or not equal or run["received"] != len(sub):
+            fail(f"the {tag} geometry run and the host oracle differ "
+                 f"(parity {run['decision_parity']})")
+        for k in ("chain_scan", "fused_scan", "sort2") if device == "cuda" else ():
+            if run["launches"][k] <= 0:
+                fail(f"the {tag} geometry run never launched {k}")
+    for i in (0, 1):
+        if read_rows(runs["auto"]["outputs"][i]) != read_rows(runs["default"]["outputs"][i]):
+            fail(f"the calibrated run's {os.path.basename(runs['auto']['outputs'][i])} rows "
+                 "differ from the default geometry's")
+    occ = runs["auto"]["report"]["occupancy"]
+    dispatched = {int(b) for b, n in occ["per_bucket_dispatches"].items() if n}
+    if not dispatched <= set(geo.buckets) or geo.source != "auto":
+        fail(f"the calibrated run dispatched buckets {sorted(dispatched)}, "
+             f"its geometry {geo.describe()}")
+    off_ladder = sorted(dispatched - set(DEFAULT_BUCKETS))
+    if not off_ladder:
+        fail(f"the calibrated geometry {geo.describe()} dispatched no bucket off the ladder")
+    new = _variant_keys(runs["auto"]) - default_keys - _variant_keys(runs["default"])
+    checked = check_new_shapes(rows, geo, new, device)
+    widest = widest_bucket_peaks(config, geo, sub, device)
+    lines = {}
+    for tag, run in runs.items():
+        o = run["report"]["occupancy"]
+        tails = run["host_routes"]["host_tail"] if "host_routes" in run else run["host_tail"]
+        lines[tag] = {
+            "docs_per_s": run["device_docs_per_s"], "seconds": run["device_seconds"],
+            "waste_ratio": o["waste_ratio"], "padded_lanes": o["padded_lanes"],
+            "real_codepoints": o["real_codepoints"], "device_batches": o["device_batches"],
+            "batches_per_bucket": o["per_bucket_dispatches"], "host_tails": tails,
+            "peak_device_mib": run["peak_device_mib"], "launches": run["launches"],
+            "dup_walk_seconds": run["dup_walk"]["seconds"],
+        }
+        print(f"auto-geometry, {tag}: {run['received']} documents, "
+              f"{run['device_docs_per_s']:.2f} docs/s ({run['device_seconds']:.2f} s), parity "
+              f"{run['decision_parity']}, waste {o['waste_ratio']} ({o['real_codepoints']} real "
+              f"of {o['padded_lanes']} lanes), batches per bucket "
+              f"{json.dumps(o['per_bucket_dispatches'])}, host tails {tails}, peak device "
+              f"memory {run['peak_device_mib']} MiB, launches {run['launches']}", flush=True)
+    print(f"auto-geometry: calibrated {geo.describe()} from {min(len(sub), CALIBRATION_SAMPLE)} "
+          f"documents; off the ladder {off_ladder}; peak device memory of one batch of the "
+          f"widest bucket by phase {json.dumps(widest)}; {len(new)} new (kernel, rows, width, "
+          f"variant) keys held to their plain versions: {json.dumps(checked)}", flush=True)
+    known = default_keys | _variant_keys(runs["default"]) | _variant_keys(runs["auto"])
+    return {"geometry": geo.to_dict(), "off_ladder": off_ladder, "runs": lines,
+            "widest_bucket_peak_mib": widest, "new_shapes_checked": checked}, known
+
+
+def widest_bucket_peaks(config, geo, rows, device: str = "cuda"):
+    """Peak device memory (MiB allocated) of one full batch of the widest
+    calibrated bucket through each phase function, on a pipeline with the
+    calibrated geometry: the corpus documents that land in that bucket,
+    packed to its batch rows."""
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.packing import pack_documents
+    from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+
+    pipe = CompiledPipeline(config, device=device, geometry=geo)
+    width, n = geo.largest, geo.batch_for(geo.largest)
+    docs = [TextDocument(id=i, source="chip_smoke", content=t) for i, t in rows
+            if geo.bucket_for(len(t)) == width][:n]
+    batch = pack_documents(docs, batch_size=n, max_len=width)
+    peaks = {"bucket": width, "rows": n, "documents": len(docs)}
+    for phase in range(len(pipe.phases)):
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        pipe.run_batch(batch, phase)
+        peaks[f"phase_{phase}"] = (torch.cuda.max_memory_allocated() / 2**20
+                                   if device == "cuda" else None)
+    return peaks
+
+
+def _journal_commits(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if '"checkpoint_commit"' in line]
+
+
+def checkpoint_phase(rows, work: str, cli_run, known_keys, device: str = "cuda"):
+    """Checkpoint/resume over the CLI run's ``CLI_DOCS`` documents, chunks
+    of ``CKPT_EVERY``: an uninterrupted ``cli.main`` run with
+    ``--checkpoint-dir`` (and its journal); ``run_checkpointed`` stopped
+    after 2 chunks and resumed; the same under ``auto_geometry=True``,
+    whose resume without the flag must raise ``CheckpointError`` and whose
+    resume with it must reuse the recorded geometry (no second
+    calibration); a run with ``checkpoint.commit`` armed to raise
+    ``OSError`` once, which must show exactly one checkpoint retry.  Every
+    run's files equal the uninterrupted run's row for row (the calibrated
+    ones by id, every column: another geometry orders the rows
+    otherwise) and the non-checkpointed CLI run's by id, every column;
+    each run's journal holds one ``checkpoint_commit`` a chunk it
+    committed; no checkpoint directory is left.  The calibrated runs'
+    (kernel, shape, variant) keys that no earlier run launched
+    (``known_keys``) are held to the plain versions too."""
+    import re
+
+    import pyarrow.parquet as pq
+
+    import textblaster_tpu_torch.checkpoint as ck
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.errors import CheckpointError
+    from textblaster_tpu_torch.ops import scan, sort
+    from textblaster_tpu_torch.ops.geometry import DeviceGeometry
+    from textblaster_tpu_torch.resilience import FAULTS
+    from textblaster_tpu_torch.utils.events import EVENTS
+    from textblaster_tpu_torch.utils.metrics import METRICS
+
+    d = os.path.join(work, "checkpoint")
+    os.makedirs(d, exist_ok=True)
+    inp = cli_run["input"]
+    n_chunks = -(-CLI_DOCS // CKPT_EVERY)
+    config = load_pipeline_config(CONFIG)
+    calibrations = []
+    real_calibrate = ck._calibrate
+
+    def counted(*a, **k):
+        calibrations.append(1)
+        return real_calibrate(*a, **k)
+
+    def paths(tag):
+        return (os.path.join(d, f"{tag}_kept.parquet"), os.path.join(d, f"{tag}_excl.parquet"),
+                os.path.join(d, f"{tag}_ckpt"), os.path.join(d, f"{tag}_events.jsonl"))
+
+    def journaled(journal, fn):
+        EVENTS.configure(journal, rank=0)
+        try:
+            return fn()
+        finally:
+            EVENTS.close()
+
+    summary, t_phase = {}, time.perf_counter()
+    # The uninterrupted run, through the CLI.
+    kept, excl, ckpt, journal = paths("cli")
+    t0 = time.perf_counter()
+    rc, out, err = _cli_main(["run", "-i", inp, "-c", CONFIG, "-o", kept, "-e", excl,
+                              "--device", device, "--checkpoint-dir", ckpt,
+                              "--checkpoint-every", str(CKPT_EVERY), "--events-file", journal])
+    if rc != 0:
+        fail(f"the checkpointed CLI run exited {rc}: {err[-500:]!r}")
+    m = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
+    if not m or int(m.group(1)) != CLI_DOCS:
+        fail(f"the checkpointed CLI run's summary line: {out[:300]!r}")
+    summary["cli"] = {"seconds": time.perf_counter() - t0, "docs_per_s": float(m.group(2)),
+                      "commits": len(_journal_commits(journal))}
+    ref = {"rows": [pq.read_table(p).to_pylist() for p in (kept, excl)]}
+    plain = [read_rows(p) for p in cli_run["outputs"]]
+    runs = {"cli": (kept, excl, ckpt, [journal], n_chunks, True)}
+
+    ck._calibrate = counted
+    try:
+        for tag, auto in (("resumed", False), ("resumed_auto", True)):
+            kept, excl, ckpt, journal = paths(tag)
+            kw = dict(ckpt_dir=ckpt, chunk_size=CKPT_EVERY, device=device, auto_geometry=auto)
+            t0 = time.perf_counter()
+            _zero_launches()
+            try:
+                journaled(journal + ".1", lambda: ck.run_checkpointed(
+                    config, inp, kept, excl, stop_after_chunks=2, **kw))
+                fail(f"the {tag} run did not stop after 2 chunks")
+            except CheckpointError as e:
+                if "fault injection" not in str(e):
+                    raise
+            state = ck.CheckpointState.load(ckpt)
+            if state is None or state.rows_consumed != 2 * CKPT_EVERY \
+                    or (state.geometry["source"] == "auto") != auto:
+                fail(f"the {tag} cursor after 2 chunks: {state}")
+            if auto:
+                try:
+                    ck.run_checkpointed(config, inp, kept, excl, ckpt_dir=ckpt,
+                                        chunk_size=CKPT_EVERY, device=device)
+                    fail("an auto-geometry checkpoint resumed without --auto-geometry")
+                except CheckpointError as e:
+                    if "pass --auto-geometry again" not in str(e):
+                        raise
+                before = len(calibrations)
+            res = journaled(journal + ".2", lambda: ck.run_checkpointed(
+                config, inp, kept, excl, **kw))
+            if auto and len(calibrations) != before:
+                fail("the auto-geometry resume calibrated again")
+            summary[tag] = {"seconds": time.perf_counter() - t0, "received": res.received,
+                            "geometry": state.geometry}
+            if auto:
+                keys = {tuple(k) for k in {**scan.SHAPE_LAUNCHES, **sort.SHAPE_LAUNCHES}}
+                summary[tag]["new_shapes_checked"] = check_new_shapes(
+                    rows, DeviceGeometry.from_dict(state.geometry), keys - known_keys, device)
+            runs[tag] = (kept, excl, ckpt, [journal + ".1", journal + ".2"], n_chunks, not auto)
+        if len(calibrations) != 1:
+            fail(f"{len(calibrations)} calibrations over the checkpoint runs, expected 1")
+
+        kept, excl, ckpt, journal = paths("commit_fault")
+        FAULTS.inject("checkpoint.commit", OSError("injected commit fault"), times=1)
+        retries0 = METRICS.get("resilience_retries_checkpoint_total")
+        t0 = time.perf_counter()
+        try:
+            res = journaled(journal, lambda: ck.run_checkpointed(
+                config, inp, kept, excl, ckpt_dir=ckpt, chunk_size=CKPT_EVERY, device=device))
+        finally:
+            fired = FAULTS.fired("checkpoint.commit")
+            FAULTS.reset()
+        retries = METRICS.get("resilience_retries_checkpoint_total") - retries0
+        if retries != 1 or fired != 1:
+            fail(f"checkpoint.commit armed once: {retries} retries, {fired} fires")
+        summary["commit_fault"] = {"seconds": time.perf_counter() - t0, "retries": retries}
+        runs["commit_fault"] = (kept, excl, ckpt, [journal], n_chunks, True)
+    finally:
+        ck._calibrate = real_calibrate
+
+    for tag, (kept, excl, ckpt, journals, chunks, ordered) in runs.items():
+        if os.path.exists(ckpt):
+            fail(f"the {tag} run left its checkpoint directory")
+        commits = sum(len(_journal_commits(j)) for j in journals)
+        if commits != chunks:
+            fail(f"the {tag} run's journal holds {commits} checkpoint commits for {chunks} chunks")
+        for i, p in enumerate((kept, excl)):
+            if ordered and pq.read_table(p).to_pylist() != ref["rows"][i]:
+                fail(f"the {tag} run's {os.path.basename(p)} differs row for row from the "
+                     "uninterrupted run's")
+            if read_rows(p) != plain[i]:
+                fail(f"the {tag} run's {os.path.basename(p)} differs from the "
+                     "non-checkpointed run's")
+        summary[tag]["commits"] = commits
+    seconds = time.perf_counter() - t_phase
+    print(f"checkpoint: {CLI_DOCS} documents, {CKPT_EVERY} a chunk; " + "; ".join(
+        f"{tag} {json.dumps(v)}" for tag, v in summary.items())
+          + f"; every run's rows equal the uninterrupted and the non-checkpointed runs', one "
+          f"commit event a chunk, no directory left ({seconds:.1f} s)", flush=True)
+    return {**summary, "seconds": seconds}
 
 
 # --- fault phase --------------------------------------------------------------
@@ -1883,12 +2317,18 @@ def main() -> int:
     print(f"dup walk (torch loop): {walk}", flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
-    summary = main_path("cuda", rows, work)
+    summary, oracle = main_path("cuda", rows, work)
     losses = launch_losses(summary["chain"], per_shape, timers)
     cli_run = cli_phase(rows, work)
     cli_run["registry_op_us"] = registry_op_seconds() * 1e6
     print(f"metrics: one registry increment takes {cli_run['registry_op_us']:.3f} us "
           "on this host", flush=True)
+    t0 = time.perf_counter()
+    default_keys = set().union(*(_variant_keys(run) for run in summary.values()
+                                 if isinstance(run, dict) and "shape_launches" in run))
+    geometry, known_keys = auto_geometry_phase(rows, work, oracle, default_keys)
+    print(f"auto-geometry phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    checkpoint = checkpoint_phase(rows, work, cli_run, known_keys)
     t0 = time.perf_counter()
     faults = fault_phase(rows, work, checked)
     print(f"fault phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1921,7 +2361,8 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
-                   "main_path": summary, "cli": cli_run, "fault_phase": faults,
+                   "main_path": summary, "cli": cli_run, "auto_geometry": geometry,
+                   "checkpoint": checkpoint, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

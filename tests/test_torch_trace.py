@@ -9,7 +9,9 @@ JAX package's, on the CPU, and its device timeline on fake CUDA events.
   counts them in each one's ``trace_events_dropped_total``.
 * :class:`DeviceClock` maps device times onto the trace clock, re-anchors
   after each batch's synchronize and reports the drift each re-anchor
-  corrects; :class:`KernelSpans` turns pooled event pairs into
+  corrects; a batch's spans, mapped between the anchors before and after
+  it, stay inside the host's reads around the batch under a timer that
+  drifts 500 ppm; a slow clock read makes the anchor record again; :class:`KernelSpans` turns pooled event pairs into
   a Chrome trace of kernel and batch spans.  Both run here on a fake
   ``torch.cuda.Event`` with a device timer that runs fast against the
   host's clock; ``tests/test_torch_card.py`` runs them on the card.
@@ -165,6 +167,10 @@ class _FakeDevice:
                     raise RuntimeError("event not complete")
                 return (other.t - self.t) / 1000.0
 
+            def synchronize(self):
+                if self.t is None:
+                    dev.release()
+
         monkeypatch.setattr(torch.cuda, "Event", Event)
         monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
         monkeypatch.setattr(pt.TRACER, "now_us", lambda: dev.host_us)
@@ -228,6 +234,61 @@ def test_reanchor_waits_until_the_device_passes_it(monkeypatch):
     # An anchor the device reached 100 us late shows as 100 us of drift:
     # why an anchor goes on an idle stream.
     assert clock.stats()["max_drift_us"] == pytest.approx(100.0, abs=0.01)
+
+
+@pytest.mark.parametrize("rate", [1.0 + 5e-4, 1.0 - 5e-4, 1.0])
+def test_bracketed_batch_spans_stay_inside_their_host_span(monkeypatch, rate):
+    """A batch of one second after a wait of two, on a device timer that
+    drifts 500 ppm against the host clock: mapped from the anchor before
+    the batch alone, a fast timer puts the batch's end past the host's
+    read after its synchronize; mapped between the anchors before and
+    after it (``bracketed``), start and end land inside the host span,
+    each early by less than the record latency."""
+    dev = _FakeDevice(monkeypatch, rate=rate)
+    clock = pt.DeviceClock()
+    clock.anchor(None)
+    latency = 3.0  # host read to device stamp of every record, in us
+    for b in range(5):
+        dev.host_us += 2_000_000.0
+        host_start = dev.host_us
+        dev.host_us += latency
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.host_us += 1_000_000.0
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        dev.host_us += latency  # the synchronize returns
+        host_end = dev.host_us
+        clock.settle(None)
+        span = clock.bracketed()
+        t0, t1 = span.to_us(start), span.to_us(end)
+        assert host_start <= t0 <= host_start + latency + 1e-6
+        assert host_end - latency - 1e-6 <= t1 <= host_end
+        if rate > 1.0:
+            assert clock.to_us(end) > host_end  # the fault bracketed() repairs
+    assert clock.bracketed() is not clock  # a pending anchor: interpolate
+
+
+def test_anchor_is_recorded_again_after_a_slow_clock_read(monkeypatch):
+    """A read of the trace clock that ends more than 20 us after it began
+    (the thread was descheduled between the read and the record) makes
+    the anchor record again, at most three times."""
+    dev = _FakeDevice(monkeypatch)
+    reads = iter([0.0, 50.0, 60.0, 61.0] + [61.0] * 10)
+    monkeypatch.setattr(pt.TRACER, "now_us", lambda: next(reads))
+    records = []
+    real = torch.cuda.Event
+
+    class Counted(real):
+        def record(self, stream=None):
+            records.append(dev.host_us)
+            super().record(stream)
+
+    monkeypatch.setattr(torch.cuda, "Event", Counted)
+    clock = pt.DeviceClock()
+    clock.anchor(None)
+    assert len(records) == 3  # the creating record, a slow one, a tight one
+    assert clock._anchor_us == 60.0
 
 
 def test_kernel_spans_resolve_into_a_chrome_trace(monkeypatch, tmp_path):

@@ -1,11 +1,13 @@
 """Command-line interface: ``python -m textblaster_tpu_torch run|validate-config``.
 
 The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
-``run`` command that the port supports (``--batch-size``,
-``--pipeline-depth`` and ``--no-overlap``, ``--errors-file``,
-``--stage-deadline-s``, ``--metrics-port``, ``--run-report``, ``--trace``,
-``--trace-device``, ``--events-file`` and ``--slo`` among them), spelled
-the same way, plus ``--backend device|host`` and ``--device cuda|cpu``
+``run`` command that the port supports (``--batch-size``, ``--buckets``,
+``--device-batch`` and ``--auto-geometry``, ``--pipeline-depth`` and
+``--no-overlap``, ``--errors-file``, ``--stage-deadline-s``,
+``--metrics-port``, ``--run-report``, ``--trace``, ``--trace-device``,
+``--events-file``, ``--slo``, ``--checkpoint-dir`` and
+``--checkpoint-every`` among them), spelled the same way and refused in
+the same combinations, plus ``--backend device|host`` and ``--device cuda|cpu``
 (``cuda`` is the default; the run fails rather than fall back when CUDA is
 absent).  A run prints the JAX package's summary line and the tail lines
 whose layers the port has (dead-letter rows, the breaker warning, host
@@ -92,6 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
                           "take the bit-exact host fallback")
     run.add_argument("--device-batch", type=int, default=None,
                      help="Documents per device batch")
+    run.add_argument("--auto-geometry", action="store_true",
+                     help="Calibrate device geometry from the data: sample "
+                          "document lengths from the head of the stream, "
+                          "choose bucket boundaries minimizing padded-"
+                          "codepoint waste, and give each bucket a work-"
+                          "equalized batch size (B ∝ lane_budget / bucket).  "
+                          "Off by default (the built-in geometry is used); "
+                          "mutually exclusive with --buckets and "
+                          "--device-batch.  Checkpointed runs record the "
+                          "calibrated geometry and resume with it")
     run.add_argument("--pipeline-depth", type=int, default=None,
                      help="Device batches kept in flight by the overlapped "
                           "host pipeline (default: the config's "
@@ -161,6 +173,12 @@ def build_parser() -> argparse.ArgumentParser:
                           "counters, per-filter drop funnel, wall time, "
                           "config provenance)")
     run.add_argument("--quiet", action="store_true", help="Suppress progress output")
+    run.add_argument("--checkpoint-dir", default=None,
+                     help="Enable chunk-level checkpointing in this directory; "
+                          "an interrupted run resumes from the last committed "
+                          "chunk (the reference cannot do this)")
+    run.add_argument("--checkpoint-every", type=int, default=8192,
+                     help="Documents per checkpointed chunk")
 
     val = sub.add_parser("validate-config", help="Validate a pipeline configuration and exit")
     val.add_argument("-c", "--pipeline-config", default="configs/pipeline_config.yaml")
@@ -226,6 +244,15 @@ def _cmd_run(args: argparse.Namespace) -> int:
         if not buckets or any(b < 64 for b in buckets):
             print(f"Invalid --buckets value: {args.buckets!r}", file=sys.stderr)
             return 1
+    if args.auto_geometry and (buckets or args.device_batch):
+        print("--auto-geometry chooses buckets and batch sizes itself; "
+              "it cannot be combined with --buckets or --device-batch",
+              file=sys.stderr)
+        return 1
+    if args.auto_geometry and args.backend == "host":
+        print("--auto-geometry tunes the device geometry; it has no effect "
+              "on --backend host", file=sys.stderr)
+        return 1
 
     # SLO objectives: config block first, --slo overrides per key, the env
     # fallback only when no flag was passed (mirrors TEXTBLAST_STAGE_DEADLINE_S).
@@ -243,8 +270,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
             return 1
         slo_objectives[key] = target
 
+    from .checkpoint import run_checkpointed
     from .resilience.watchdog import WATCHDOG
-    from .runner import run_pipeline
+    from .runner import _Progress, run_pipeline
 
     # Armed after every check that can end the run early: from here on,
     # every exit path closes what it arms (the finally below).
@@ -278,7 +306,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         "device": args.device,
         "buckets": list(buckets) if buckets else None,
         "device_batch": args.device_batch,
-        "auto_geometry": False,
+        "auto_geometry": bool(args.auto_geometry),
         "overlap_enabled": bool(config.overlap.enabled),
         "pipeline_depth": int(config.overlap.pipeline_depth),
         "speculate_depth": None,
@@ -311,21 +339,44 @@ def _cmd_run(args: argparse.Namespace) -> int:
         with device_profile(
             args.trace_device, args.device if args.backend == "device" else "host"
         ):
-            result = run_pipeline(
-                config,
-                input_file=args.input_file,
-                output_file=args.output_file,
-                excluded_file=args.excluded_file,
-                text_column=args.text_column,
-                id_column=args.id_column,
-                backend=args.backend,
-                device=args.device,
-                read_batch_size=args.batch_size,
-                device_batch=args.device_batch,
-                buckets=buckets,
-                errors_file=args.errors_file,
-                quiet=args.quiet,
-            )
+            if args.checkpoint_dir:
+                progress = _Progress(enabled=not args.quiet)
+                result = run_checkpointed(
+                    config=config,
+                    input_file=args.input_file,
+                    output_file=args.output_file,
+                    excluded_file=args.excluded_file,
+                    ckpt_dir=args.checkpoint_dir,
+                    chunk_size=args.checkpoint_every,
+                    text_column=args.text_column,
+                    id_column=args.id_column,
+                    backend=args.backend,
+                    device=args.device,
+                    read_batch_size=args.batch_size,
+                    device_batch=args.device_batch,
+                    buckets=buckets,
+                    auto_geometry=args.auto_geometry,
+                    progress=progress.update,
+                    errors_file=args.errors_file,
+                )
+                progress.finish()
+            else:
+                result = run_pipeline(
+                    config,
+                    input_file=args.input_file,
+                    output_file=args.output_file,
+                    excluded_file=args.excluded_file,
+                    text_column=args.text_column,
+                    id_column=args.id_column,
+                    backend=args.backend,
+                    device=args.device,
+                    read_batch_size=args.batch_size,
+                    device_batch=args.device_batch,
+                    buckets=buckets,
+                    errors_file=args.errors_file,
+                    quiet=args.quiet,
+                    auto_geometry=args.auto_geometry,
+                )
         if EVENTS.enabled:
             EVENTS.emit("run_end", exit_code=0)
     except PipelineError as e:

@@ -353,14 +353,23 @@ class CompiledPipeline:
         buckets=DEFAULT_BUCKETS,
         batch_size: Optional[int] = None,
         device=None,
+        geometry: Optional[DeviceGeometry] = None,
     ) -> None:
         self.config = config
         self.device = resolve_device(device)
-        bs = tuple(sorted(buckets))
-        if not batch_size:
-            batch_size = default_batch_size(bs, self.device)
-        self.geometry = DeviceGeometry.uniform(bs, batch_size)
+        if geometry is not None:
+            # A calibrated (or checkpoint-recorded) geometry supersedes the
+            # buckets/batch_size knobs.
+            self.geometry = geometry
+        else:
+            bs = tuple(sorted(buckets))
+            default = default_batch_size(bs, self.device)
+            if not batch_size:  # None or 0, as the CLI passes them
+                batch_size = default
+            src = "default" if batch_size == default else "explicit"
+            self.geometry = DeviceGeometry.uniform(bs, batch_size, source=src)
         self.buckets = self.geometry.buckets
+        # The largest per-dispatch row count: chunk sizing keys off it.
         self.batch_size = self.geometry.max_batch
 
         steps = list(config.pipeline)
@@ -670,12 +679,15 @@ class CompiledPipeline:
         event that cannot be read raises."""
         clock = self.device_clock
         clock.settle(stream)
+        # Between the anchors before and after the batch: the device
+        # timer's drift over the batch cancels (a span mapped from the one
+        # before alone has ended past its host span).
+        span = clock.bracketed()
         if TRACER.enabled:
-            TRACER.device_span(
-                "device_batch", clock.to_us(start), start.elapsed_time(end) * 1000.0, args
-            )
+            ts = span.to_us(start)
+            TRACER.device_span("device_batch", ts, span.to_us(end) - ts, args)
         if KERNEL_SPANS.enabled:
-            KERNEL_SPANS.resolve(clock, start, end, args)
+            KERNEL_SPANS.resolve(span, start, end, args)
 
     # --- degradation ladder -------------------------------------------------
 
@@ -1770,6 +1782,7 @@ def process_documents_device(
     buckets=DEFAULT_BUCKETS,
     pipeline: Optional[CompiledPipeline] = None,
     device=None,
+    geometry: Optional[DeviceGeometry] = None,
 ) -> Iterator[ProcessingOutcome]:
     """Device-backed processing loop: packs the stream into bucketed batches,
     runs the device pipeline phase by phase, and yields outcomes.
@@ -1777,10 +1790,13 @@ def process_documents_device(
     Outcome order is deterministic but not input order (documents are
     grouped by length bucket); tests compare outputs as id-keyed sets, as
     for the JAX package.  Pass a prebuilt ``pipeline`` to reuse it (and to
-    read its :attr:`~CompiledPipeline.counters` afterwards)."""
+    read its :attr:`~CompiledPipeline.counters` afterwards; the
+    checkpointed runner processes one chunk per call).  A ``geometry``
+    (calibrated or recorded) supersedes ``buckets`` / ``device_batch``."""
     if pipeline is None:
         pipeline = CompiledPipeline(
-            config, buckets=buckets, batch_size=device_batch, device=device
+            config, buckets=buckets, batch_size=device_batch, device=device,
+            geometry=geometry,
         )
     # Nothing to warm up: the kernels were built with the pipeline, so it is
     # ready (the JAX package's maybe_warmup sets the gauge alike when it

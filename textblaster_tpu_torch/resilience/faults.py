@@ -18,14 +18,18 @@ Three fault *kinds*:
   hanging thread (raising ``StallError`` into the seam) or the injector is
   disarmed (:meth:`FaultInjector.reset` from another thread).
 
-Sites planted in the port (the JAX package's ``checkpoint.commit`` and
-``multihost.*`` sites come with those modules):
+Sites planted in the port (the JAX package's other ``multihost.*`` sites
+come with the multi-host path):
 
 * ``"read.batch"``        — per row-group Parquet fetch
   (:mod:`textblaster_tpu_torch.io.parquet_reader`);
 * ``"device.execute"``    — per device-batch dispatch
   (:meth:`textblaster_tpu_torch.ops.pipeline.CompiledPipeline.dispatch_batch`,
-  on the dispatch thread when the window is overlapped).
+  on the dispatch thread when the window is overlapped);
+* ``"checkpoint.commit"`` — per checkpoint cursor commit, inside the
+  retried tmp-and-rename (:meth:`textblaster_tpu_torch.checkpoint.CheckpointState.save`);
+* ``"multihost.rejoin"``  — per stripe-cursor claim
+  (:meth:`textblaster_tpu_torch.checkpoint.CheckpointState.adopt`).
 
 The injector is **inert by default**: with nothing armed, :meth:`fire` is a
 single attribute load + falsy check and keeps no per-call state, so

@@ -13,21 +13,25 @@ import logging
 import os
 import sys
 import time
-from typing import Iterable, Iterator, List, Optional, Sequence
+from itertools import chain, islice
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 from .config.pipeline import PipelineConfig
+from .errors import PipelineError
 from .orchestration import (
     AggregationResult,
     aggregate_results_from_stream,
     process_documents_host,
     read_documents,
 )
+from .ops.geometry import CALIBRATION_SAMPLE, DeviceGeometry, calibrate_geometry
 from .ops.packing import DEFAULT_BUCKETS
-from .ops.pipeline import CompiledPipeline, process_documents_device
+from .ops.pipeline import CompiledPipeline, process_documents_device, resolve_device
 from .pipeline_builder import build_pipeline_from_config
 from .resilience.deadletter import DeadLetterSink
 from .resilience.retry import RetryPolicy
 from .utils.overlap import prefetch_iter
+from .utils.trace import TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +84,7 @@ def run_pipeline(
     pipeline: Optional[CompiledPipeline] = None,
     errors_file: Optional[str] = None,
     quiet: bool = False,
+    auto_geometry: bool = False,
 ) -> AggregationResult:
     """Process one Parquet shard.  ``device`` defaults to ``cuda``; pass a
     prebuilt ``pipeline`` to read its counters afterwards.
@@ -97,8 +102,20 @@ def run_pipeline(
     FIFO, so the files are byte-identical to the serial path's
     (``overlap.enabled: false`` or ``TEXTBLAST_NO_OVERLAP=1``).
 
+    ``auto_geometry`` calibrates the device geometry from the data (the
+    CLI's ``--auto-geometry``): the head of the stream, up to
+    ``CALIBRATION_SAMPLE`` documents, is buffered, its lengths choose the
+    buckets and per-bucket batch sizes, and the head is replayed ahead of
+    the rest, so order and content are untouched.  It builds its own
+    pipeline, so it takes no ``pipeline``.
+
     Unless ``quiet``, a progress line goes to stderr when it is a
     terminal."""
+    if auto_geometry and pipeline is not None:
+        raise ValueError(
+            "run_pipeline: auto_geometry calibrates its own pipeline; "
+            "pass no pipeline"
+        )
     progress = _Progress(enabled=not quiet)
     read_errors = [0]
     read_seconds = [0.0]
@@ -109,13 +126,13 @@ def run_pipeline(
         if deadletter is not None:
             deadletter.record_read_error(err)
 
-    if backend == "device" and pipeline is None:
-        pipeline = CompiledPipeline(
-            config,
-            buckets=tuple(buckets) if buckets else DEFAULT_BUCKETS,
-            batch_size=device_batch,
-            device=device,
-        )
+    calibrate = backend == "device" and pipeline is None and auto_geometry
+    if calibrate:
+        # Fails here without CUDA, before the reader starts, as building
+        # the pipeline does.
+        device = resolve_device(device)
+    elif backend == "device" and pipeline is None:
+        pipeline = _build_pipeline(config, buckets, device_batch, device)
     docs = _timed_iter(
         read_documents(
             input_file, text_column=text_column, id_column=id_column,
@@ -134,8 +151,14 @@ def run_pipeline(
         docs = prefetch_iter(
             docs, depth=oc.read_ahead, block=max(64, read_batch_size // 4)
         )
+    # The read-ahead thread (if any) is stopped on every exit path, also
+    # after the calibration pass re-wraps ``docs`` in a chain.
+    doc_source = docs
     outcomes = None
     try:
+        if calibrate:
+            geometry, docs = _calibrate(docs, device)
+            pipeline = _build_pipeline(config, buckets, device_batch, device, geometry)
         if backend == "device":
             outcomes = process_documents_device(
                 config, docs, on_read_error=on_read_error, pipeline=pipeline
@@ -162,7 +185,7 @@ def run_pipeline(
             if outcomes is not None:
                 outcomes.close()
             if overlapped:
-                docs.close()
+                doc_source.close()
         finally:
             if deadletter is not None:
                 deadletter.close()
@@ -170,6 +193,40 @@ def run_pipeline(
     result.read_errors = read_errors[0]
     result.seconds["read"] = read_seconds[0]
     return result
+
+
+def _build_pipeline(config, buckets, device_batch, device, geometry=None) -> CompiledPipeline:
+    """The device pipeline of a run: ``geometry`` when given (calibrated or
+    recorded), else ``buckets`` (default ladder) at ``device_batch`` rows
+    (the device's default)."""
+    return CompiledPipeline(
+        config,
+        buckets=tuple(buckets) if buckets else DEFAULT_BUCKETS,
+        batch_size=device_batch,
+        device=device,
+        geometry=geometry,
+    )
+
+
+def _calibrate(docs: Iterable, device) -> Tuple[Optional[DeviceGeometry], Iterator]:
+    """The calibration pass: buffer the head of ``docs`` (up to
+    ``CALIBRATION_SAMPLE`` items), calibrate a geometry for ``device``'s
+    type from its documents' lengths (None when the head holds none: the
+    default ladder applies), and return it with an iterator that yields
+    the head, then the rest."""
+    it = iter(docs)
+    geometry = None
+    with TRACER.span("calibration"):
+        head = list(islice(it, CALIBRATION_SAMPLE))
+        lengths = [len(d.content) for d in head if not isinstance(d, PipelineError)]
+        if lengths:
+            geometry = calibrate_geometry(lengths, backend=device)
+            logger.info(
+                "Auto-calibrated device geometry from %d sampled documents: %s",
+                len(lengths),
+                geometry.describe(),
+            )
+    return geometry, chain(head, it)
 
 
 def _timed_iter(items: Iterable, acc: List[float]) -> Iterator:

@@ -37,7 +37,8 @@ its device timeline from CUDA events, with no profiler:
   an anchor event, recorded where its stream is idle and read against
   :meth:`Tracer.now_us` at the same moment, and re-anchored after every
   batch, after the synchronize the batch already makes (it reports the
-  drift each re-anchor corrects).
+  drift each re-anchor corrects); a batch's events map between the
+  anchors before and after it (:meth:`DeviceClock.bracketed`).
 * ``run_batch`` (``ops/pipeline.py``) turns the two timing events that
   already bracket each batch into one ``device_batch`` span on a
   ``device`` track (:meth:`Tracer.device_span`), after the batch's own
@@ -464,6 +465,13 @@ TRACER = Tracer()
 DEVICE_TRACE_FILE = "device_trace.json"
 
 
+#: An anchor's record is made again (at most ``_ANCHOR_TRIES`` times) when
+#: more than ``_ANCHOR_READ_US`` passed between the clock read and the end
+#: of the enqueue (a thread descheduled in between).
+_ANCHOR_TRIES = 3
+_ANCHOR_READ_US = 20
+
+
 class DeviceClock:
     """Maps CUDA event times on one device onto :data:`TRACER`'s clock.
 
@@ -472,17 +480,20 @@ class DeviceClock:
     :meth:`Tracer.now_us` read just before the record: a later event's
     trace time is ``anchor_us + anchor.elapsed_time(event) * 1000``.  The
     device cannot reach the anchor before the host records it, so the
-    mapping errs early by the record's latency (a few microseconds), never
-    late: an event that the host has waited for maps before the host's
-    read after the wait.  The device's timer and the host's
-    ``perf_counter`` drift apart, by microseconds a second, so after each
-    batch's own synchronize (its stream is idle then) :meth:`settle`
-    records a new anchor (one event and a clock read); the next settle
-    that finds it complete takes it over.  What the old anchor predicts for the
-    new one, minus the host's reading, is the drift that re-anchor
-    corrects: :attr:`drift_us` is the largest, :attr:`total_drift_us` the
-    first anchor's error at the latest re-anchor, :attr:`span_s` seconds
-    after it.  Nothing here synchronizes: an anchor is resolved only once
+    mapping errs early by the record's latency (a few microseconds).  The
+    device's timer and the host's ``perf_counter`` drift apart (by tens
+    of microseconds between two anchors a batch apart on an H100 host), so
+    after each batch's own synchronize (its stream is idle then)
+    :meth:`settle` records a new anchor (one event and a clock read); the
+    next settle that finds it complete takes it over.  What the old anchor
+    predicts for the new one, minus the host's reading, is the drift that
+    re-anchor corrects: :attr:`drift_us` is the largest,
+    :attr:`total_drift_us` the first anchor's error at the latest
+    re-anchor, :attr:`span_s` seconds after it.  An event mapped from the
+    anchor before it alone can map late by the drift since; a batch's
+    events are mapped by :meth:`bracketed`, between the anchors before and
+    after the batch, which errs early only.  Only :meth:`bracketed` waits,
+    for an anchor on an idle stream; otherwise an anchor is resolved once
     ``query()`` says the device passed it.
     """
 
@@ -511,10 +522,15 @@ class DeviceClock:
 
         ev = torch.cuda.Event(enable_timing=True)
         # The first record creates the CUDA event (tens of microseconds);
-        # the second, read against the clock, only enqueues.
+        # the second, read against the clock, only enqueues.  A thread
+        # descheduled between the read and the enqueue would make the
+        # anchor err early by that pause: such a record is made again.
         ev.record(stream)
-        us = float(TRACER.now_us())
-        ev.record(stream)
+        for _ in range(_ANCHOR_TRIES):
+            us = float(TRACER.now_us())
+            ev.record(stream)
+            if TRACER.now_us() - us <= _ANCHOR_READ_US:
+                break
         with self._lock:
             if self._anchor is None:
                 self._anchor = self._first = ev
@@ -546,6 +562,24 @@ class DeviceClock:
         """``event``'s time on the trace clock (the event has completed)."""
         return self._anchor_us + self._anchor.elapsed_time(event) * 1000.0
 
+    def bracketed(self):
+        """The mapping for a batch that just finished, after its
+        :meth:`settle`: between the anchor in use (recorded before the
+        batch) and the one ``settle`` recorded after it, device time is
+        scaled to the host clock's, so whatever the device timer drifted
+        against ``perf_counter`` over the batch cancels, and an event maps
+        early by the anchors' record latency, never late.  It waits for
+        the new anchor, which went on an idle stream (microseconds).
+        Without a new anchor, this clock."""
+        with self._lock:
+            a, a_us, pending = self._anchor, self._anchor_us, self._pending
+        if pending is None:
+            return self
+        b, b_us = pending
+        b.synchronize()
+        dev_us = a.elapsed_time(b) * 1000.0
+        return _Bracket(a, a_us, (b_us - a_us) / dev_us if dev_us > 0 else 1.0)
+
     def stats(self) -> Dict[str, float]:
         return {
             "reanchors": self.reanchors,
@@ -553,6 +587,19 @@ class DeviceClock:
             "total_drift_us": round(self.total_drift_us, 3),
             "total_drift_span_s": round(self.span_s, 3),
         }
+
+
+class _Bracket:
+    """:meth:`DeviceClock.bracketed`'s mapping: ``anchor_us`` plus device
+    time since ``anchor``, scaled by ``rate``."""
+
+    __slots__ = ("anchor", "anchor_us", "rate")
+
+    def __init__(self, anchor, anchor_us: float, rate: float) -> None:
+        self.anchor, self.anchor_us, self.rate = anchor, anchor_us, rate
+
+    def to_us(self, event) -> float:
+        return self.anchor_us + self.anchor.elapsed_time(event) * 1000.0 * self.rate
 
 
 class KernelSpans:
@@ -620,20 +667,23 @@ class KernelSpans:
         ev.record(torch.cuda.current_stream(device))
         self._pending().append((start, ev, kernel, key))
 
-    def resolve(self, clock: DeviceClock, start, end, args: Dict[str, Any]) -> None:
+    def resolve(self, clock, start, end, args: Dict[str, Any]) -> None:
         """After the batch's own synchronize: one span for the batch
         (``start`` to ``end``) and one for each launch this thread made
-        since the last batch, its events handed back to the pool."""
+        since the last batch, its events handed back to the pool; ``clock``
+        maps events onto the trace clock (a :class:`DeviceClock` or its
+        :meth:`~DeviceClock.bracketed` mapping)."""
         pending = self._pending()
         ts = clock.to_us(start)
-        dur = start.elapsed_time(end) * 1000.0
         events = [{"name": "device_batch", "ph": "X", "ts": round(ts, 3),
-                   "dur": round(dur, 3), "pid": 0, "tid": 1, "args": args}]
+                   "dur": round(clock.to_us(end) - ts, 3), "pid": 0, "tid": 1,
+                   "args": args}]
         for k_start, k_end, kernel, key in pending:
+            k_ts = clock.to_us(k_start)
             events.append({
                 "name": f"{kernel}[{','.join(str(v) for v in key[1:])}]",
-                "ph": "X", "ts": round(clock.to_us(k_start), 3),
-                "dur": round(k_start.elapsed_time(k_end) * 1000.0, 3), "pid": 0, "tid": 2,
+                "ph": "X", "ts": round(k_ts, 3),
+                "dur": round(clock.to_us(k_end) - k_ts, 3), "pid": 0, "tid": 2,
                 "args": {"kernel": kernel, "variant": list(key), "batch": args.get("batch")},
             })
         with self._lock:
