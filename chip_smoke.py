@@ -89,8 +89,18 @@ Phases (any failure exits non-zero without the final result line):
    loopback port; one ``GET /metrics`` while the endpoint is up must pass
    the exposition rules (``utils/promlint.py``), the summary line must be
    the JAX package's, with the report's counts and the files' rows; a run
-   over a missing input must exit 1 with ``Pipeline run failed:``.  Then
-   the host seconds of one registry increment (the unit cost of a metric
+   over a missing input must exit 1 with ``Pipeline run failed:``.  The
+   same documents again with the trace, device trace, journal and two
+   SLOs armed (the ``cli armed`` line), then with ``--doc-sample-rate 1``
+   (every document: the worst case), a ``p99_latency_s`` SLO,
+   ``--run-report`` and ``--metrics-port`` (the ``cli telemetry`` line):
+   files byte-identical to the plain run's; ``doc_sampled_total`` equal to
+   the ids read; the ``e2e`` latency count, and the ``doc_flow`` lineages
+   (one a document, by id), equal to the documents written; every
+   lineage's stamps non-decreasing in stage order (its stage deltas sum to
+   its end-to-end latency); ``GET /telemetry`` during the run answers
+   JSON with at least one rollup window; the SLO saw events.  Then the
+   host seconds of one registry increment (the unit cost of a metric
    hook), over 200,000 of them.
 7. Auto-geometry: ``run_pipeline(auto_geometry=True)`` over the first
    5,000 documents (the whole calibration sample), windowed, chain
@@ -1356,6 +1366,7 @@ def cli_phase(rows, work: str, device: str = "cuda"):
         if not m_off:
             fail(f"the CLI's summary line is not the JAX package's: {out[:300]!r}")
         armed = armed_cli_run(inp, work, device, kept, excl, float(m_off.group(2)))
+        telemetry = telemetry_cli_run(inp, work, device, kept, excl, float(m_off.group(2)))
     finally:
         cli.setup_prometheus_metrics = real
         for server in servers:
@@ -1400,7 +1411,8 @@ def cli_phase(rows, work: str, device: str = "cuda"):
           f"{err_missing.strip()[:80]!r}", flush=True)
     return {"documents": CLI_DOCS, "wall_seconds": wall, "summary_line": m.group(0),
             "report": report, "scrape_bytes": len(body), "scrape_samples": len(scraped),
-            "missing_input": err_missing.strip(), "armed": armed, "input": inp,
+            "missing_input": err_missing.strip(), "armed": armed, "telemetry": telemetry,
+            "input": inp,
             "outputs": (kept, excl)}
 
 
@@ -1522,6 +1534,129 @@ def armed_cli_run(inp, work, device, kept_off, excl_off, rate_off):
             "kernel_us": kernel_us, "batch_us": batch_us, "busy": busy,
             "journal_kinds": counts, "slo": report["slo"],
             "healthz": answers["/healthz"], "slo_endpoint": answers["/slo"][1]}
+
+
+TELEMETRY_POLL_S = 1.0  # how often the telemetry run's poller asks GET /telemetry
+
+
+def telemetry_cli_run(inp, work, device, kept_off, excl_off, rate_off):
+    """The CLI run again over the same documents with ``--doc-sample-rate 1``
+    (every document sampled), a ``p99_latency_s`` SLO, ``--run-report`` and
+    ``--metrics-port``, while a thread asks ``GET /telemetry`` every
+    ``TELEMETRY_POLL_S``.  The ``doc_flow`` lineages are read at the
+    telemetry module's trace seam (a tap that keeps each instant's
+    arguments and passes it on to the tracer, which is off here).  Checks:
+    kept and excluded files byte-identical to the plain run's;
+    ``doc_sampled_total`` (this run's delta) equal to the ids read; the
+    report's ``e2e`` latency count, and the lineages by id, equal to the
+    documents written; every lineage's stage deltas summing to its
+    end-to-end latency (consecutive stamps never decrease: a negative
+    delta is clamped to 0 and would make the sum exceed it), and every
+    device lineage carrying dispatch, device_wait and assemble; a
+    ``/telemetry`` answer during the run with at least one window; the
+    SLO's events equal to the lineages.  Prints docs/s sampled against
+    plain, each stage's p50/p95/p99, the counts and the windows."""
+    import re
+    import threading
+    import urllib.request
+
+    import pyarrow.parquet as pq
+
+    from textblaster_tpu_torch.utils import telemetry as telemetry_mod
+    from textblaster_tpu_torch.utils.metrics import METRICS
+
+    d = os.path.join(work, "cli_telemetry")
+    os.makedirs(d, exist_ok=True)
+    kept, excl = os.path.join(d, "kept.parquet"), os.path.join(d, "excl.parquet")
+    report_path = os.path.join(d, "report.json")
+    port = _free_loopback_port()
+    flows = []
+    tracer = telemetry_mod.TRACER
+
+    class FlowTap:
+        def instant(self, name, args=None):
+            if name == "doc_flow":
+                flows.append(args)
+            tracer.instant(name, args)
+
+    polls = []
+    done = threading.Event()
+
+    def poll():
+        while not done.wait(TELEMETRY_POLL_S):
+            try:
+                url = f"http://127.0.0.1:{port}/telemetry"
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    polls.append((resp.status, json.loads(resp.read())))
+            except OSError:  # the endpoint is not up yet
+                pass
+
+    sampled_before = METRICS.get("doc_sampled_total")
+    poller = threading.Thread(target=poll, name="telemetry-poll", daemon=True)
+    telemetry_mod.TRACER = FlowTap()
+    poller.start()
+    try:
+        rc, out, err = _cli_main(["run", "-i", inp, "-c", CONFIG, "-o", kept, "-e", excl,
+                                  "--device", device, "--doc-sample-rate", "1",
+                                  "--slo", "p99_latency_s=30", "--run-report", report_path,
+                                  "--metrics-port", str(port)])
+    finally:
+        done.set()
+        poller.join()
+        telemetry_mod.TRACER = tracer
+    sampled = int(METRICS.get("doc_sampled_total") - sampled_before)
+    block = err[err.find("Per-document tail latency"):].splitlines()[:9]
+    for line in block:
+        print(f"  cli telemetry | {line}", flush=True)
+    if rc != 0:
+        fail(f"the telemetry CLI run exited {rc}: {err[-500:]!r}")
+    for a, b in ((kept, kept_off), (excl, excl_off)):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"the telemetry run's {os.path.basename(a)} differs from the plain run's")
+    with open(report_path) as f:
+        report = json.load(f)
+    n_read = pq.ParquetFile(inp).metadata.num_rows
+    written = [pq.read_table(p, columns=["id"]).column("id").to_pylist() for p in (kept, excl)]
+    written = written[0] + written[1]
+    stages = report["latency"]["stages"]
+    e2e = stages.get("e2e", {}).get("count", 0)
+    slo = report["slo"].get("objectives", {}).get("p99_latency_s", {})
+    if sampled != n_read or e2e != len(written) or slo.get("events") != e2e:
+        fail(f"telemetry counts: {sampled} sampled of {n_read} read, e2e count {e2e} of "
+             f"{len(written)} written, SLO {slo}")
+    if sorted(f["id"] for f in flows) != sorted(written):
+        fail(f"{len(flows)} doc_flow lineages for {len(written)} written documents")
+    order = telemetry_mod.STAGES
+    broken = [f for f in flows if sum(f["us"][s] for s in order if s in f["us"]) != f["us"]["e2e"]]
+    device_flows = [f for f in flows if "dispatch" in f["us"]]
+    partial = [f for f in device_flows
+               if not all(s in f["us"] for s in ("read", "pack", "device_wait", "assemble", "write"))]
+    if broken or partial or not device_flows:
+        fail(f"lineages: {len(broken)} with decreasing stamps ({broken[:2]}), "
+             f"{len(partial)} device lineages missing a stage ({partial[:2]}), "
+             f"{len(device_flows)} reached the device")
+    live = [body for status, body in polls if status == 200 and body.get("windows")]
+    if not live or not all(k in live[-1] for k in ("latency", "sample_rate", "open_lineages")):
+        fail(f"GET /telemetry during the run: {len(polls)} answers, none with a window")
+    m = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
+    if not m:
+        fail(f"the telemetry run's summary line: {out[:300]!r}")
+    rate = float(m.group(2))
+    quantiles = {s: (v["p50_s"], v["p95_s"], v["p99_s"]) for s, v in stages.items()}
+    p99_stage = max((s for s in order if s in stages), key=lambda s: stages[s]["p99_s"])
+    print(f"cli telemetry: {rate} docs/s sampled at 1 against {rate_off} plain "
+          f"({rate / rate_off:.4f}x), files byte-identical; {sampled} sampled = {n_read} read; "
+          f"e2e count {e2e} = {len(written)} written = doc_flow lineages; "
+          f"{len(device_flows)} reached the device, stamps non-decreasing in every lineage; "
+          f"p50/p95/p99 s by stage {quantiles}; largest p99 in {p99_stage}; "
+          f"GET /telemetry {len(live)} of {len(polls)} answers with windows, "
+          f"{len(live[-1]['windows'])} windows in the last; SLO p99_latency_s {slo}", flush=True)
+    return {"docs_per_s": rate, "docs_per_s_plain": rate_off, "sampled": sampled,
+            "read": n_read, "written": len(written), "e2e_count": e2e,
+            "device_lineages": len(device_flows), "stages": stages, "p99_stage": p99_stage,
+            "telemetry_polls": len(polls), "windows": len(live[-1]["windows"]),
+            "last_snapshot": live[-1], "slo": slo}
 
 
 # --- auto-geometry and checkpoint/resume -----------------------------------------

@@ -52,6 +52,8 @@ from textblaster_tpu_torch.resilience.breaker import CircuitBreaker
 from textblaster_tpu_torch.runner import run_pipeline as port_run
 from textblaster_tpu_torch.utils.metrics import METRICS
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = [pytest.mark.torch_port, pytest.mark.chaos]
 
 CONFIG_YAML = """

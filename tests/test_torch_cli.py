@@ -34,7 +34,7 @@ from textblaster_tpu_torch import cli, orchestration, runner
 from textblaster_tpu_torch.cli import build_parser, main
 from textblaster_tpu_torch.utils.promlint import exposition_problems
 
-from test_torch_pipeline import _write_parquet, make_corpus
+from test_torch_pipeline import _write_parquet, make_corpus, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

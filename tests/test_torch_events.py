@@ -53,6 +53,7 @@ from textblaster_tpu.cli import main as jax_main
 from textblaster_tpu.utils import events as je
 from textblaster_tpu.utils import metrics as jm
 from textblaster_tpu.utils import slo as js
+from textblaster_tpu.utils import telemetry as jtel
 from textblaster_tpu.utils import trace as jt
 from textblaster_tpu_torch.cli import main as port_main
 from textblaster_tpu_torch.config.pipeline import parse_pipeline_config as port_parse
@@ -61,9 +62,10 @@ from textblaster_tpu_torch.resilience import FAULTS, WATCHDOG
 from textblaster_tpu_torch.utils import events as pe
 from textblaster_tpu_torch.utils import metrics as pm
 from textblaster_tpu_torch.utils import slo as ps
+from textblaster_tpu_torch.utils import telemetry as ptel
 from textblaster_tpu_torch.utils import trace as pt
 
-from test_torch_pipeline import _write_parquet, make_corpus
+from test_torch_pipeline import _write_parquet, make_corpus, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -284,6 +286,43 @@ def test_flight_record_payloads_are_equal(tmp_path, monkeypatch, with_slo):
     assert payloads["port"]["exception"] == {"type": "OSError", "message": "disk gone"}
     assert ("slo" in payloads["port"]) == with_slo
     assert "telemetry" not in payloads["port"]
+
+
+def test_flight_record_carries_telemetry_when_on(tmp_path, monkeypatch):
+    """Telemetry on: the dump holds the live rollup snapshot under
+    ``telemetry``, key for key and value for value the JAX package's (one
+    fake clock in both telemetry modules)."""
+    _fresh_registries(monkeypatch)
+    payloads = {}
+    for tag, tele in (("jax", jtel), ("port", ptel)):
+        _, events, _, metrics = PACKAGES[tag]
+        clock = [500.0]
+        monkeypatch.setattr(tele, "METRICS", metrics.METRICS)
+        monkeypatch.setattr(tele, "time", type("Clock", (), {
+            "perf_counter": staticmethod(lambda: clock[0])}))
+        tele.TELEMETRY.configure(2, window_s=1.0, start_ticker=False)
+        try:
+            tele.TELEMETRY.set_geometry_baseline(0.25)
+            tele.TELEMETRY.mark("read", [f"d{i}" for i in range(12)])
+            clock[0] += 0.125
+            tele.TELEMETRY.complete([type("Doc", (), {"id": f"d{i}"})() for i in range(6)])
+            metrics.METRICS.inc("producer_results_received_total", 40)
+            metrics.METRICS.inc("occupancy_padded_lanes_total", 1000)
+            metrics.METRICS.inc("occupancy_real_codepoints_total", 400)
+            tele.TELEMETRY.roll_window()
+            events.EVENTS.configure(None)
+            _emit_all(events)
+            path = events.flight_record(str(tmp_path / tag / "out.parquet"), rank=0,
+                                        reason="pipeline_error", exc=OSError("disk gone"))
+        finally:
+            tele.TELEMETRY.close()
+        payload = json.loads(Path(path).read_text())
+        payloads[tag] = payload["telemetry"]
+    assert payloads["port"] == payloads["jax"]
+    assert payloads["port"]["latency"]["stages"]["e2e"]["mean_s"] == 0.125
+    assert payloads["port"]["enabled"] is True and len(payloads["port"]["windows"]) == 1
+    assert payloads["port"]["sampled_docs"] == sum(ptel.doc_sampled(f"d{i}", 2)
+                                                   for i in range(12))
 
 
 def _emit_call_sites():

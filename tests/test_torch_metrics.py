@@ -10,8 +10,8 @@
 * ``record_occupancy`` gives equal counter deltas on the same documents
   packed by each package.
 * The HTTP endpoint: GET, HEAD, a query string, 404, no port, a bind
-  failure that is not fatal (as ``tests/test_metrics.py``); ``/healthz``
-  and ``/slo`` answer JSON.
+  failure that is not fatal (as ``tests/test_metrics.py``); ``/healthz``,
+  ``/slo`` and ``/telemetry`` answer JSON.
 * The port's exposition lint (``utils/promlint.py``) passes both
   packages' exposition and catches each broken rule.
 * The seams: TokenCounter's stand-in counter, the reader, writer, overlap
@@ -19,6 +19,7 @@
 """
 
 import importlib
+import json
 import sys
 import types
 import urllib.error
@@ -32,13 +33,14 @@ from textblaster_tpu.data_model import TextDocument as JaxDoc
 from textblaster_tpu.ops.packing import pack_documents as jax_pack
 from textblaster_tpu.ops.pipeline import record_occupancy as jax_record_occupancy
 from textblaster_tpu.utils import metrics as jm
+from textblaster_tpu.utils import telemetry as jax_telemetry
 from textblaster_tpu_torch.data_model import TextDocument as TorchDoc
 from textblaster_tpu_torch.ops.packing import pack_documents as port_pack
 from textblaster_tpu_torch.ops.pipeline import record_occupancy as port_record_occupancy
 from textblaster_tpu_torch.utils import metrics as pm
 from textblaster_tpu_torch.utils.promlint import exposition_problems
 
-from test_torch_pipeline import make_corpus
+from test_torch_pipeline import make_corpus, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -174,10 +176,16 @@ def test_http_endpoint_serves_metrics(server):
         body = resp.read().decode()
     assert "producer_tasks_published_total" in body
     assert exposition_problems(body) == []
-    for path in ("/other", "/telemetry"):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"http://127.0.0.1:{port}{path}")
-        assert e.value.code == 404
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/other")
+    assert e.value.code == 404
+    # /telemetry belongs to the telemetry hub (tests/test_torch_telemetry.py):
+    # its snapshot as JSON, with the JAX package's keys.
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/telemetry?x=1") as resp:
+        assert resp.status == 200
+        assert resp.headers["Content-Type"] == "application/json"
+        snapshot = json.loads(resp.read())
+    assert sorted(snapshot) == sorted(jax_telemetry.TELEMETRY.snapshot())
     # /healthz and /slo belong to the SLO engine (tests/test_torch_slo.py):
     # served, as JSON, 200 or 503.
     for path in ("/healthz", "/slo"):

@@ -23,6 +23,8 @@ from textblaster_tpu_torch.ops import dfa as tdfa
 from textblaster_tpu_torch.ops import langid_device as tlangid
 from textblaster_tpu_torch.weights import own_tables, tables_from_numpy
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 

@@ -26,7 +26,7 @@ from textblaster_tpu_torch.data_model import TextDocument
 from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
 from textblaster_tpu_torch.utils.overlap import ThreadedWriter, prefetch_iter
 
-from test_torch_pipeline import _write_parquet, make_corpus
+from test_torch_pipeline import _write_parquet, make_corpus, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -27,6 +27,17 @@ from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU path on one torch thread: its batches are small, and
+    under a parallel test run a thread a core in every worker spin-waits
+    the cores away from each other.  The other port test files import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 CONFIG = "configs/pipeline_config_offline.yaml"
 BUCKETS = (512, 2048)
 

@@ -33,6 +33,8 @@ import pyarrow.parquet as pq
 import pytest
 import torch
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 PACKAGES = ("textblaster_tpu", "textblaster_tpu_torch")

@@ -32,7 +32,7 @@ from textblaster_tpu.utils import profiler as jax_profiler
 from textblaster_tpu_torch.cli import main as port_main
 from textblaster_tpu_torch.utils import metrics as pm
 
-from test_torch_pipeline import _write_parquet, make_corpus
+from test_torch_pipeline import _write_parquet, make_corpus, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -22,6 +22,8 @@ import torch
 from textblaster_tpu.ops import pallas_scan as psc
 from textblaster_tpu_torch.ops import scan
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 

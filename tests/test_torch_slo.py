@@ -11,6 +11,8 @@ the JAX package's, on the CPU.
   equal states and snapshots, journal equal ``slo_alert`` /
   ``slo_resolved`` records (``ts_us`` masked), publish equal registries
   and give byte-equal ``slo_report`` sections.
+* The ``p99_latency_s`` objective fed by lineages that both packages'
+  telemetry hubs close, in lockstep.
 * ``health_snapshot`` and the ``/healthz`` and ``/slo`` endpoints answer
   alike in both packages: starting, ready, degraded by the breaker, by a
   new watchdog escalation and by a firing alert.
@@ -30,6 +32,8 @@ from textblaster_tpu_torch.config.pipeline import parse_pipeline_config as port_
 from textblaster_tpu_torch.errors import PipelineError as PortPipelineError
 
 from test_torch_events import PACKAGES, _fresh_registries, _strip_ts, hygiene  # noqa: F401
+
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
 
 pytestmark = pytest.mark.torch_port
 
@@ -150,6 +154,58 @@ def test_engines_agree_step_by_step(name, monkeypatch):
         assert kinds.count("slo_alert") == 1 and kinds.count("slo_resolved") == 1
     if name == "blip_under_the_slow_window":
         assert "slo_alert" not in kinds
+
+
+#: Lineage batches for the p99 objective: (clock step s, documents, seconds
+#: from the read stamp to the write seam).
+LINEAGES = ((1.0, 40, 0.05), (2.0, 10, 0.9), (3.0, 30, 0.2), (4.0, 5, 2.5))
+
+
+def test_p99_latency_objective_reads_a_real_lineage(monkeypatch):
+    """``p99_latency_s`` fed by lineages the telemetry hub closes (mark at
+    every stage seam, then ``complete``), not by hand-made samples: equal
+    states, journals and reports in both packages, one event a completed
+    document, bad events the ones slower than the target."""
+    from textblaster_tpu.utils import telemetry as jtel
+    from textblaster_tpu_torch.utils import telemetry as ptel
+
+    _fresh_registries(monkeypatch)
+    clock, tele_clock = _Clock(), _Clock()
+    got = {}
+    for tag, tele in (("jax", jtel), ("port", ptel)):
+        _, events, slo, metrics = PACKAGES[tag]
+        monkeypatch.setattr(slo, "time", types.SimpleNamespace(monotonic=clock))
+        monkeypatch.setattr(tele, "time", types.SimpleNamespace(perf_counter=tele_clock))
+        monkeypatch.setattr(tele, "METRICS", metrics.METRICS)
+        clock.t = tele_clock.t = 1000.0
+        events.EVENTS.configure(None)
+        tele.TELEMETRY.configure(1, start_ticker=False)
+        slo.SLO.configure({"p99_latency_s": 0.5}, fast_window_s=2.0, slow_window_s=4.0,
+                          start_ticker=False)
+        t0 = slo.SLO._t0
+        states, n = [], 0
+        try:
+            for step, docs, seconds in LINEAGES:
+                ids = [f"d{n + i}" for i in range(docs)]
+                n += docs
+                for k, stage in enumerate(tele.STAGES):
+                    tele_clock.t += seconds * (k > 0) / (len(tele.STAGES) - 1)
+                    tele.TELEMETRY.mark(stage, ids)
+                tele.TELEMETRY.complete([types.SimpleNamespace(id=i) for i in ids])
+                states.append(slo.SLO.evaluate(now=t0 + step))
+        finally:
+            tele.TELEMETRY.close()
+        got[tag] = {
+            "states": states, "journal": _strip_ts(events.EVENTS.drain()),
+            "report": slo.slo_report(None, metrics.METRICS.all_values()),
+        }
+        slo.SLO.reset()
+        events.EVENTS.close()
+    assert got["port"] == got["jax"]
+    p99 = got["port"]["report"]["objectives"]["p99_latency_s"]
+    assert p99["events"] == sum(d for _, d, _ in LINEAGES)
+    assert p99["bad_events"] == sum(d for _, d, s in LINEAGES if s > 0.5)
+    assert "slo_alert" in [r["kind"] for r in got["port"]["journal"]]
 
 
 # --- health and the endpoints ---------------------------------------------------------------

@@ -27,6 +27,8 @@ import torch
 from textblaster_tpu.ops import pallas_sort as ps
 from textblaster_tpu_torch.ops import sort
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 I32_MAX = 2**31 - 1

@@ -23,6 +23,8 @@ from textblaster_tpu_torch.ops import stats as ts
 from textblaster_tpu_torch.ops.pipeline import _table_sizes
 from textblaster_tpu_torch.utils.text import DANISH_STOP_WORDS
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 L = 512

@@ -33,6 +33,8 @@ from textblaster_tpu_torch.utils import trace as pt
 
 from test_torch_events import hygiene  # noqa: F401  (autouse fixture)
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 MASK = ("ts", "dur", "pid", "tid")

@@ -36,6 +36,8 @@ from textblaster_tpu_torch.errors import UnexpectedError
 from textblaster_tpu_torch.filters import c4_badwords as torch_badwords
 from textblaster_tpu_torch.filters.token_counter import TokenCounter as TorchTokenCounter
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401  (autouse fixture)
+
 pytestmark = pytest.mark.torch_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

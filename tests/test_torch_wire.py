@@ -28,7 +28,7 @@ from textblaster_tpu_torch.pipeline_builder import build_pipeline_from_config
 
 import test_tail_routing
 import test_wire_u16
-from test_torch_pipeline import make_corpus
+from test_torch_pipeline import make_corpus, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

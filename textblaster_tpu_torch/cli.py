@@ -5,14 +5,15 @@ The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
 ``--device-batch`` and ``--auto-geometry``, ``--pipeline-depth`` and
 ``--no-overlap``, ``--errors-file``, ``--stage-deadline-s``,
 ``--metrics-port``, ``--run-report``, ``--trace``, ``--trace-device``,
-``--events-file``, ``--slo``, ``--checkpoint-dir`` and
-``--checkpoint-every`` among them), spelled the same way and refused in
+``--events-file``, ``--slo``, ``--doc-sample-rate``, ``--checkpoint-dir``
+and ``--checkpoint-every`` among them), spelled the same way and refused in
 the same combinations, plus ``--backend device|host`` and ``--device cuda|cpu``
 (``cuda`` is the default; the run fails rather than fall back when CUDA is
 absent).  A run prints the JAX package's summary line and the tail lines
 whose layers the port has (dead-letter rows, the breaker warning, host
 fallbacks, read errors; unless ``--quiet``, the stage, occupancy and
-funnel summaries, and the trace, journal and SLO lines, on stderr).
+funnel summaries, the trace, journal and SLO lines, and with
+``--doc-sample-rate`` the per-document latency block, on stderr).
 
 ``--trace-device LOGDIR`` is where the ports differ in means: the JAX
 package captures ``jax.profiler.trace``; the port writes per-kernel and
@@ -49,6 +50,7 @@ from .utils.metrics import (
     write_run_report,
 )
 from .utils.slo import SLO, parse_slo_arg
+from .utils.telemetry import TELEMETRY, format_latency_summary
 from .utils.trace import TRACER, device_profile
 
 __all__ = ["main", "build_parser"]
@@ -172,6 +174,16 @@ def build_parser() -> argparse.ArgumentParser:
                           "(stage breakdown, occupancy, resilience "
                           "counters, per-filter drop funnel, wall time, "
                           "config provenance)")
+    run.add_argument("--doc-sample-rate", type=int, default=0, metavar="N",
+                     help="Sample 1-in-N documents for per-document "
+                          "tail-latency lineage: sampled docs are stamped "
+                          "at every stage seam and feed the "
+                          "doc_latency_* HDR histograms (p50/p95/p99 in "
+                          "the run report, /metrics, and the end-of-run "
+                          "summary) plus the live rollup windows on "
+                          "/telemetry.  Deterministic on the doc id, so "
+                          "every run samples the same documents.  "
+                          "0 = off (zero hot-path cost)")
     run.add_argument("--quiet", action="store_true", help="Suppress progress output")
     run.add_argument("--checkpoint-dir", default=None,
                      help="Enable chunk-level checkpointing in this directory; "
@@ -253,6 +265,10 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print("--auto-geometry tunes the device geometry; it has no effect "
               "on --backend host", file=sys.stderr)
         return 1
+    if args.doc_sample_rate < 0:
+        print(f"Invalid --doc-sample-rate value: {args.doc_sample_rate}",
+              file=sys.stderr)
+        return 1
 
     # SLO objectives: config block first, --slo overrides per key, the env
     # fallback only when no flag was passed (mirrors TEXTBLAST_STAGE_DEADLINE_S).
@@ -278,6 +294,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
     # every exit path closes what it arms (the finally below).
     if args.trace:
         TRACER.configure(args.trace, process_name="textblast", pid=0)
+    if args.doc_sample_rate > 0:
+        TELEMETRY.configure(args.doc_sample_rate)
     WATCHDOG.configure(config.resilience.stage_deadline_s)
     events_path = args.events_file or (
         os.environ.get("TEXTBLAST_EVENTS", "").strip() or None
@@ -311,7 +329,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         "pipeline_depth": int(config.overlap.pipeline_depth),
         "speculate_depth": None,
         "num_processes": 1,
-        "doc_sample_rate": 0,
+        "doc_sample_rate": int(args.doc_sample_rate),
         "profile": False,
         "stage_deadline_s": float(config.resilience.stage_deadline_s),
         "events_file": args.events_file,
@@ -324,6 +342,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
     stages_before = stage_snapshot()
     occupancy_before = occupancy_snapshot()
     funnel_before = funnel_snapshot()
+    latency_before = METRICS.all_values() if args.doc_sample_rate > 0 else None
     if EVENTS.enabled:
         # After the baseline snapshot, so the report's events section
         # charges run_start to this run rather than to history.
@@ -398,6 +417,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         raise
     finally:
         TRACER.close()
+        TELEMETRY.close()  # stops the rollup ticker; HDR state stays in METRICS
         SLO.close()  # final evaluation tick, then disarm
         EVENTS.close()  # flushes the journal spill; counters stay in METRICS
 
@@ -458,6 +478,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
                 ),
                 file=sys.stderr,
             )
+        if args.doc_sample_rate > 0:
+            print(format_latency_summary(latency_before), file=sys.stderr)
         if args.trace:
             print(f"Trace written -> {args.trace} "
                   "(load at https://ui.perfetto.dev)", file=sys.stderr)

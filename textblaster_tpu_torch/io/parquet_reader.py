@@ -37,6 +37,7 @@ from ..errors import ConfigError, ParquetError, PipelineError, UnexpectedError
 from ..resilience.faults import FAULTS
 from ..resilience.retry import RetryPolicy
 from ..utils.metrics import METRICS
+from ..utils.telemetry import TELEMETRY
 from ..utils.trace import TRACER
 from .base import BaseReader
 
@@ -239,6 +240,11 @@ class ParquetReader(BaseReader):
             with TRACER.span("read", {"kind": "decode", "rows": batch.num_rows}):
                 items = self._decode_batch(batch, has)
             METRICS.inc("stage_read_seconds", time.perf_counter() - t0)
+            if TELEMETRY.enabled:
+                TELEMETRY.mark(
+                    "read",
+                    (d.id for d in items if isinstance(d, TextDocument)),
+                )
             yield from items
 
     def _decode_batch(

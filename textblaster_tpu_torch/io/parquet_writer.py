@@ -27,6 +27,7 @@ import pyarrow.parquet as pq
 from ..data_model import TextDocument
 from ..errors import ParquetError
 from ..utils.metrics import METRICS
+from ..utils.telemetry import TELEMETRY
 from ..utils.trace import TRACER
 from .base import BaseWriter
 
@@ -66,16 +67,26 @@ class ParquetWriter(BaseWriter):
     def write_batch(self, documents: Sequence[TextDocument]) -> None:
         if not documents:
             return
+        if TELEMETRY.enabled:
+            TELEMETRY.mark("write", (d.id for d in documents))
         t0 = time.perf_counter()
         try:
             with TRACER.span("write", {"rows": len(documents)}):
                 self._write_batch_inner(documents)
         finally:
-            # Timed here (not in callers) so every write path lands in the
-            # stage counter exactly once.
+            # Timed here (not in callers) so every write path — runner,
+            # checkpoint parts, the threaded writer — lands in the stage
+            # counter exactly once.
             dt = time.perf_counter() - t0
             self.seconds += dt
             METRICS.inc("stage_write_seconds", dt)
+        if TELEMETRY.enabled:
+            # The single seam every persisted document passes through:
+            # close sampled lineages here, and feed the chars/s rollup.
+            METRICS.inc(
+                "writer_chars_total", sum(len(d.content) for d in documents)
+            )
+            TELEMETRY.complete(documents)
 
     def _write_batch_inner(self, documents: Sequence[TextDocument]) -> None:
         ids: List[str] = []

@@ -96,6 +96,7 @@ from ..resilience.watchdog import WATCHDOG
 from ..utils.events import EVENTS
 from ..utils.metrics import FILTER_DROP_PREFIX, METRICS
 from ..utils.overlap import prefetch_iter, shared_pack_pool
+from ..utils.telemetry import TELEMETRY
 from ..utils.trace import KERNEL_SPANS, TRACER, DeviceClock
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
@@ -707,9 +708,16 @@ class CompiledPipeline:
         with a retryable error (the drain's ladder re-dispatches from
         scratch), or ``_BREAKER_OPEN`` when the breaker refused the
         request.  Fatal errors propagate; a windowed batch's error waits in
-        its future for the drain."""
+        its future for the drain.
+
+        The ``dispatch`` lineage stamp is taken here, on the caller's
+        thread, when the batch is handed to the device path (the JAX
+        package's asynchronous launch): the dispatch thread may run it only
+        after the caller already waits on it."""
         if not self._breaker.allow_request():
             return _BREAKER_OPEN
+        if TELEMETRY.enabled:
+            TELEMETRY.mark("dispatch", (d.id for d in batch.docs))
         if dispatcher is not None:
             return dispatcher.submit(batch, phase)
         try:
@@ -762,9 +770,16 @@ class CompiledPipeline:
             if isinstance(p, BaseException):
                 raise p
             if p is None:
+                if TELEMETRY.enabled:
+                    TELEMETRY.mark("dispatch", (d.id for d in batch.docs))
                 if dispatcher is None:
-                    return self.run_batch(batch, phase)
+                    result = self.run_batch(batch, phase)
+                    if TELEMETRY.enabled:
+                        TELEMETRY.mark("device_wait", (d.id for d in batch.docs))
+                    return result
                 p = dispatcher.submit(batch, phase)
+            if TELEMETRY.enabled:
+                TELEMETRY.mark("device_wait", (d.id for d in batch.docs))
             with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}):
                 return self._result(p, dispatcher)
 
@@ -822,6 +837,10 @@ class CompiledPipeline:
         stalls in its readiness wait.
         """
         first = None
+        if TELEMETRY.enabled and isinstance(pending, (Future, tuple)):
+            # The caller starts waiting on the batch (serially its result
+            # is already here: the dispatch stage held the whole batch).
+            TELEMETRY.mark("device_wait", (d.id for d in batch.docs))
         if isinstance(pending, Future):
             t0 = time.perf_counter()
             try:
@@ -1327,6 +1346,8 @@ class CompiledPipeline:
         """Resolve order/short-circuit/reason strings per document from one
         phase's host-side stats.  Returns ``(outcomes, survivors)``: survivors
         passed a non-final phase and continue to the next."""
+        if TELEMETRY.enabled:
+            TELEMETRY.mark("assemble", (d.id for d in batch.docs))
         n_rows = len(batch.docs)
         step_ids = self.phases[phase]
         evals = [
@@ -1411,6 +1432,8 @@ class CompiledPipeline:
         """``pack_documents`` with the pack-stage wall clock added to
         ``counters["seconds"]["pack"]`` (pack workers run it concurrently)
         and ``stage_pack_seconds``."""
+        if TELEMETRY.enabled:
+            TELEMETRY.mark("pack", (d.id for d in docs))
         t0 = time.perf_counter()
         try:
             with TRACER.span("pack", {"rows": len(docs), "bucket": max_len}):

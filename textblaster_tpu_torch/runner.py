@@ -31,6 +31,7 @@ from .pipeline_builder import build_pipeline_from_config
 from .resilience.deadletter import DeadLetterSink
 from .resilience.retry import RetryPolicy
 from .utils.overlap import prefetch_iter
+from .utils.telemetry import TELEMETRY, expected_waste
 from .utils.trace import TRACER
 
 logger = logging.getLogger(__name__)
@@ -226,6 +227,11 @@ def _calibrate(docs: Iterable, device) -> Tuple[Optional[DeviceGeometry], Iterat
                 len(lengths),
                 geometry.describe(),
             )
+            if TELEMETRY.enabled:
+                # Drift baseline: the waste this geometry implies for the
+                # calibration sample — what the live rollup windows are
+                # compared against.
+                TELEMETRY.set_geometry_baseline(expected_waste(lengths, geometry))
     return geometry, chain(head, it)
 
 

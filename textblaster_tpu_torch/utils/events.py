@@ -31,10 +31,9 @@ counters, which the run report's ``events`` section reads.
 
 The **flight recorder** (:func:`flight_record`) is the crash-path
 consumer: on a fatal exit it writes the last-N journal events, the metrics
-registry and the SLO state to ``<output>.flightrec/rank<r>.json`` (atomic
-tmp, fsync and rename).  The port has no telemetry layer yet, so the dump
-has no ``telemetry`` section, as the JAX package's has none with telemetry
-off.
+registry, the live telemetry rollups (``telemetry``, when telemetry is on)
+and the SLO state to ``<output>.flightrec/rank<r>.json`` (atomic tmp, fsync
+and rename).
 """
 
 from __future__ import annotations
@@ -417,7 +416,7 @@ def flight_record(
     tmp+fsync+rename so a concurrent scraper never sees a torn file.
     The payload bundles everything a postmortem needs without scrollback:
     the last-N journal events, per-kind counts, the full metrics registry,
-    and SLO state.  Best-effort by construction —
+    live telemetry rollups, and SLO state.  Best-effort by construction —
     returns the written path, or None if anything failed (the fatal path
     that called us must still exit cleanly)."""
     try:
@@ -443,6 +442,13 @@ def flight_record(
                 "type": type(exc).__name__,
                 "message": str(exc),
             }
+        try:
+            from .telemetry import TELEMETRY
+
+            if TELEMETRY.enabled:
+                payload["telemetry"] = TELEMETRY.snapshot()
+        except Exception:  # pragma: no cover - rollup must not kill the dump
+            pass
         try:
             from .slo import SLO
 

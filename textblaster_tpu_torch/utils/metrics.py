@@ -29,12 +29,16 @@ Seams that count here in the port:
   ``events_*`` and ``slo_*``.  :func:`metrics_snapshot` flushes an armed
   SLO engine first, the run report's ``events`` and ``slo`` sections read
   them, and the HTTP handler serves ``/healthz`` and ``/slo`` beside
-  ``/metrics``.
+  ``/metrics``;
+* per-document telemetry (``utils/telemetry.py``): ``doc_sampled_total``,
+  ``doc_lineage_evicted_total``, ``writer_chars_total``,
+  ``geometry_drift`` and the ``doc_latency_*_seconds`` HDR families, which
+  the run report's ``latency`` section reads; the HTTP handler serves
+  ``/telemetry``.
 
-The layers the port does not have yet (telemetry and the profiler) have no
-seam here: their report sections (``latency``, ``device_profile``) keep the
-JAX package's keys and read what the JAX package reads with those layers
-off, and the handler has no ``/telemetry``.
+The profiler is not ported yet: the report's ``device_profile`` section
+keeps the JAX package's keys and reads what the JAX package reads with the
+profiler off.
 """
 
 from __future__ import annotations
@@ -1487,10 +1491,19 @@ class _Handler(BaseHTTPRequestHandler):
         if self._is_metrics_path():
             body = METRICS.render().encode("utf-8")
             ctype = "text/plain; version=0.0.4"
+        elif path == "/telemetry":
+            # Live rollup snapshot (JSON) next to the exposition.  Imported
+            # lazily: telemetry.py imports this module at load time, the
+            # reverse edge only exists inside a request.
+            from .telemetry import TELEMETRY
+
+            body = (
+                json.dumps(TELEMETRY.snapshot(), sort_keys=True) + "\n"
+            ).encode("utf-8")
+            ctype = "application/json"
         elif path == "/healthz":
             # Live/ready verdict (200 ready, 503 starting/degraded) with a
-            # component breakdown.  Imported lazily: slo.py imports this
-            # module, the reverse edge only exists inside a request.
+            # component breakdown.  Lazy import for the same reason.
             from .slo import health_snapshot
 
             status, health = health_snapshot()
@@ -1505,7 +1518,6 @@ class _Handler(BaseHTTPRequestHandler):
             ).encode("utf-8")
             ctype = "application/json"
         else:
-            # The JAX package's /telemetry waits for the port's telemetry.
             self.send_response(404)
             self.end_headers()
             return

@@ -18,9 +18,9 @@ as ``KEY=TARGET`` pairs (``--slo`` / the ``slo:`` config block):
   end-to-end path within the target.  Evaluated from the
   ``doc_latency_e2e_seconds`` HDR histogram: bad = samples whose bucket
   upper bound exceeds the target, total = all samples.  Implied error
-  budget = 1% (it's a p99).  The port's doc-latency telemetry is not
-  there yet, so in a run the family stays empty and the objective sees no
-  events, as the JAX package's does with ``--doc-sample-rate 0``.
+  budget = 1% (it's a p99).  The family is fed by the doc-latency
+  telemetry (``utils/telemetry.py``), so the objective sees events only
+  in a run with ``--doc-sample-rate`` above 0.
 * ``throughput_floor=500`` — docs/s the run must sustain: each
   evaluation tick compares the since-last-tick document rate against the
   floor; bad = ticks below it.  Error budget = 5% of ticks.
@@ -75,8 +75,7 @@ SLO_KEYS: Dict[str, Tuple[float, str]] = {
     "p99_latency_s": (
         0.01,
         "99th-percentile sampled end-to-end document latency ceiling, "
-        "seconds (needs the doc-latency telemetry, which the port does not "
-        "have yet); budget = 1% of samples",
+        "seconds (needs --doc-sample-rate > 0); budget = 1% of samples",
     ),
     "throughput_floor": (
         0.05,
