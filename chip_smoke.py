@@ -48,16 +48,17 @@ Phases (any failure exits non-zero without the final result line):
    ``configs/pipeline_config_offline.yaml``: under the chain schedule (the
    default) over the whole corpus, windowed (the default: reader thread,
    pack pool, a dispatch thread on its own CUDA stream with two batches in
-   flight, writer threads), then serial (``TEXTBLAST_NO_OVERLAP=1``); over
-   its first 3,000
-   documents, windowed, under the fused schedule
-   (``TEXTBLAST_DEPFUSE=off``), the staged one (``TEXTBLAST_FUSED=off``)
-   and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``;
+   flight, writer threads); over its first 3,000 documents, windowed,
+   under the fused schedule (``TEXTBLAST_DEPFUSE=off``), the staged one
+   (``TEXTBLAST_FUSED=off``) and the chain schedule with
+   ``TEXTBLAST_HOST_TAILS=off``, then the last serially
+   (``TEXTBLAST_NO_OVERLAP=1``);
    then once through the port's host oracle (sharded over the CPU cores,
    one process per shard).  Each run's kept and excluded sets must equal
-   the oracle's id for id (text and metadata), parity exactly 1.0; each
-   windowed chain run must write the same kept and excluded ids, and the
-   same bytes, as each serial one; the chain run must dispatch every
+   the oracle's id for id (text and metadata), parity exactly 1.0; the
+   windowed chain run with tails off must write the same kept and
+   excluded ids, and the same bytes, as the serial one; the chain run
+   must dispatch every
    default bucket and route astral documents to the host (the u16 wire);
    each chain run must launch ``chain_scan``, ``fused_scan``,
    ``affine_scan``, ``dfa_scan`` and ``sort2``; each fused run
@@ -78,13 +79,34 @@ Phases (any failure exits non-zero without the final result line):
    bucket by bucket; each run prints the report's stage breakdown (the
    JAX package's stage names, with the host/device verdict), the padding
    waste and the funnel.
+   The first windowed chain run over the whole corpus runs with the
+   profiler armed (``utils/profiler.py``): configure, the cost pass
+   (before the launch counters are set to 0), the run, close.
 5. Launches per shape: the first chain run's launches of every kernel by
    shape and variant, each beside the kernel's time at that shape
    (``sort2`` and the per-scan kernels are timed at every shape and
    variant the run launched them at), and per kernel the sum of
    launches x (kernel ms - bound ms), the device time the kernel loses on
    the main path against its bound.
-6. The CLI: ``textblaster_tpu_torch.cli.main`` on ``cuda`` over the first
+6. The profiler: per (bucket, phase) of the profiled chain run, the
+   dispatch count, mean / p50 / p99 device seconds (the batch's CUDA
+   events), the modeled bytes, the achieved bytes/s and its share of
+   3.35 TB/s; the top-8 slowest dispatches and the recommended
+   ``--stage-deadline-s`` (twice the slowest); the HDR counts must equal
+   the batches dispatched, bucket by bucket, and the cost model's launches
+   times each program's dispatches must be at least the run's launches
+   (printed with the gap per kernel); its docs/s beside the next
+   windowed run's (the CLI's profiled run is the same-documents pair).
+   Then one batch of
+   corpus documents per (bucket, phase) of the default ladder, plainly
+   and under ``torch.profiler`` (CPU and CUDA activity): the batch's
+   CUDA-event span split into hand-kernel time, eager PyTorch kernel time
+   and launches, copies, device idle gaps and host time blocked in
+   synchronizing calls (fails when the profiler records no CUDA
+   activity).  Then the sentinel workload on ``cuda`` and on ``cpu``:
+   equal dispatch counts (the JAX package's baseline's) and an equal cost
+   fingerprint, passing ``profiles/sentinel_baseline_torch.json``.
+7. The CLI: ``textblaster_tpu_torch.cli.main`` on ``cuda`` over the first
    2,000 documents with ``--run-report`` and ``--metrics-port`` on a free
    loopback port; one ``GET /metrics`` while the endpoint is up must pass
    the exposition rules (``utils/promlint.py``), the summary line must be
@@ -99,10 +121,14 @@ Phases (any failure exits non-zero without the final result line):
    (one a document, by id), equal to the documents written; every
    lineage's stamps non-decreasing in stage order (its stage deltas sum to
    its end-to-end latency); ``GET /telemetry`` during the run answers
-   JSON with at least one rollup window; the SLO saw events.  Then the
-   host seconds of one registry increment (the unit cost of a metric
+   JSON with at least one rollup window; the SLO saw events.  Then with
+   ``--profile`` and ``--run-report`` (the ``cli profiled`` line): files
+   byte-identical to the plain run's, the report's ``device_profile``
+   dispatch counts summing to its device batches, a cost fingerprint,
+   the ``Device profile:`` line, docs/s against the plain run's.  Then
+   the host seconds of one registry increment (the unit cost of a metric
    hook), over 200,000 of them.
-7. Auto-geometry: ``run_pipeline(auto_geometry=True)`` over the first
+8. Auto-geometry: ``run_pipeline(auto_geometry=True)`` over the first
    5,000 documents (the whole calibration sample), windowed, chain
    schedule, host tails on, beside the default geometry's run of the same
    documents; both held to the host oracle (parity 1.0) and to each other
@@ -115,7 +141,7 @@ Phases (any failure exits non-zero without the final result line):
    ``chain_scan`` with every call site's program on a corpus batch of each
    calibrated bucket at its rows (probe and generic programs at any shape
    left over).
-8. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
+9. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
    uninterrupted ``cli.main`` run with ``--checkpoint-dir`` and
    ``--events-file``; ``run_checkpointed`` stopped after 2 chunks and
    resumed; the same under ``auto_geometry=True`` (a resume without the
@@ -126,17 +152,17 @@ Phases (any failure exits non-zero without the final result line):
    for row (the calibrated run's by id) and the non-checkpointed CLI
    run's by id, every column; one ``checkpoint_commit`` journal record a
    chunk; no checkpoint directory left.
-9. Fault phase: the degradation ladder, the breaker and the watchdog,
+10. Fault phase: the degradation ladder, the breaker and the watchdog,
    each run with zero backoff and a breaker threshold of 2 and held to a
    fault-free run of the same documents (kept and excluded rows equal by
-   id, every column): over the first 2,000 documents a fault-free run
+   id, every column): over the first 1,000 documents a fault-free run
    writing ``--errors-file`` (a well-formed empty file), a retry run
    (``device.execute`` raises ``OSError`` twice at the run's last dispatch:
    one retry) and a split run (five times: the batch exhausts its retries
    and splits; every shape the halves launched that the fault-free run did
    not must have been held to its plain version); over the first 500 an
    outage (every dispatch fails: every document on the host rung, the
-   breaker trips once); over the first 2,000 at depth 3 an injected hang
+   breaker trips once); over the first 1,000 at depth 3 an injected hang
    twice under a 0.5 s stage deadline; over the documents longer than
    32,768 characters (only the 65536 bucket) a real out-of-memory run, the
    allocator capped before each batch between the half batch's and the
@@ -145,7 +171,7 @@ Phases (any failure exits non-zero without the final result line):
    a fatal ``ValueError`` that must propagate with no dispatch thread
    left.  Each run prints docs/s beside its fault-free run's, the ladder
    and watchdog counters and the launches at the split rows.
-10. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+11. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -164,10 +190,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pipeline_config_offline.yaml")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# H100 SXM float32 outside the tensor cores (NVIDIA data sheet); the sheet
-# gives no int32 rate, so the kernels' integer operations are held to it.
-OPS_PER_S = 67e12
 N_DOCS = int(os.environ.get("CHIP_SMOKE_DOCS", "20000"))
 #: The documents of the runs over a subset: 3,000, so that the
 #: auto-geometry and checkpoint phases fit the script's time.
@@ -177,7 +199,8 @@ GEOMETRY_DOCS = 5000
 #: Windowed runs over the first STAGED_SUBSET documents: the fused and the
 #: staged schedules, and the chain schedule with the host tails off.
 SUBSET_RUNS = (("fused", {"TEXTBLAST_DEPFUSE": "off"}), ("staged", {"TEXTBLAST_FUSED": "off"}),
-               ("chain_tails_off", {"TEXTBLAST_HOST_TAILS": "off"}))
+               ("chain_tails_off", {"TEXTBLAST_HOST_TAILS": "off"}),
+               ("chain_serial", {"TEXTBLAST_HOST_TAILS": "off", "TEXTBLAST_NO_OVERLAP": "1"}))
 SEED = 20251016
 # The offline config's GopherRepetition n-gram sizes.
 TOP_NS, DUP_NS = (2, 3, 4), (5, 6, 7, 8, 9, 10)
@@ -387,15 +410,6 @@ def graph_ms(fn, iters: int = 20, per_graph: int = 10) -> float:
     return start.elapsed_time(end) / (iters * per_graph)
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the integer operations over the CUDA-core rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
 def packed_maps(rng, shape, n_states, dev, stray=False):
     """Seeded nibble-packed DFA maps on ``dev``: every nibble below
     ``n_states`` a state; with ``stray`` the nibbles at or above it hold
@@ -408,19 +422,6 @@ def packed_maps(rng, shape, n_states, dev, stray=False):
         out &= ~(15 << (4 * s))
         out |= rng.integers(0, n_states, size=shape, dtype=np.int64) << (4 * s)
     return torch.from_numpy(out.astype(np.uint32).view(np.int32)).to(dev)
-
-
-def scan_cost(kind, rows, width, variant):
-    """(bytes, operations) of one per-scan kernel call: ``affine_scan``
-    with ``variant`` = k accumulators reads m and k streams and writes k,
-    one multiply for m and a multiply-add per accumulator per element;
-    ``dfa_scan`` with ``variant`` = n_states reads and writes one stream,
-    per element and state a nibble extract (shift, mask) and a
-    lookup-insert (shift, mask, or)."""
-    n = rows * width
-    if kind == "affine_scan":
-        return 4.0 * n * (1 + 2 * variant), 1.0 * n * (1 + 2 * variant)
-    return 8.0 * n, 5.0 * n * variant
 
 
 def fused_site_lists(full_range, packed_maps, shape):
@@ -454,27 +455,6 @@ def fused_site_lists(full_range, packed_maps, shape):
                               add(r(2), emit="last"), dfa(packed_maps(shape, 4), 4, emit="last"),
                               dfa(packed_maps(shape, 8), 8, emit="last")],
     }
-
-
-def fused_cost(groups):
-    """(bytes, operations) the fused scan must spend on ``groups``: each
-    input read once, each scanned output written once, each final carry
-    written once; per element an affine group does 1 + 2k operations, an
-    add stream 1, and a DFA group 5 per state."""
-    b, n = groups[0]["xs"][0].shape
-    n_bytes = ops = 0.0
-    for g in groups:
-        n_in = len(g["xs"])
-        n_out = n_in - 1 if g["kind"] == "affine" else n_in
-        last = g.get("emit") == "last"
-        n_bytes += 4.0 * b * n * (n_in + (0 if last else n_out)) + (4.0 * b * n_out if last else 0)
-        if g["kind"] == "affine":
-            ops += b * n * (1 + 2 * (n_in - 1))
-        elif g["kind"] == "add":
-            ops += b * n * n_in
-        else:
-            ops += b * n * 5 * g["n_states"]
-    return n_bytes, ops
 
 
 def text_batch(rows, shape, dev):
@@ -553,28 +533,6 @@ def generic_chain(full_range, packed_maps, shape, dev):
     ]
 
 
-def chain_cost(passes):
-    """(bytes, operations) a chain launch must spend: each external operand
-    read once, each emit-"scan" stream written once, each final carry
-    written once (taps and workspace streams stay on chip in the bound);
-    per element a prep does about one operation per dependency, and the
-    scans as in :func:`fused_cost` (a segmented max 3, a copy none)."""
-    from textblaster_tpu_torch.ops import scan
-
-    _, ext, out_modes, _, _ = scan._chain_plan(passes)
-    b, n = ext[0].shape
-    n_bytes = 4.0 * b * n * (len(ext) + out_modes.count("scan")) + 4.0 * b * out_modes.count("last")
-    ops = 0.0
-    for p in passes:
-        for g in p["groups"]:
-            n_ops = g.get("n_ops", len(g["xs"]))
-            per = len(g["xs"]) if "prep" in g else 0
-            per += {"affine": 1 + 2 * (n_ops - 1), "add": n_ops, "segmax": 3, "copy": 0,
-                    "dfa": 5 * g.get("n_states", 0)}[g["kind"]]
-            ops += b * n * per
-    return n_bytes, ops
-
-
 def check_sort2(rng, rows, width, dev) -> int:
     """``sort2`` against its plain version on seeded keys of ``[rows,
     width]`` (ties in the first key); fails on any difference, else returns
@@ -602,6 +560,7 @@ def kernel_phase(corpus):
     import torch
 
     from textblaster_tpu_torch.ops import scan, sort
+    from textblaster_tpu_torch.ops.cost import bound, chain_cost, fused_cost, scan_cost, sort_cost
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
@@ -838,18 +797,13 @@ def kernel_phase(corpus):
         k1 = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(rows, width), dtype=np.int64).astype(np.int32)).to(dev)
         k2 = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(rows, width)).astype(np.int32)).to(dev)
         z = (k1.long() << 32) | k2.long()
-        lg = max(1, (width - 1).bit_length())
-        # Two int32 keys in and out per element; the bitonic network's
-        # width/2 * lg*(lg+1)/2 compare-exchanges per row, each a 64-bit
-        # compare and two selects (3 operations).
-        exchanges = rows * (1 << lg) // 2 * lg * (lg + 1) // 2
         return dict(
             shape=[rows, width],
             ms=graph_ms(lambda: sort.sort2(k1, k2)),
             call_ms=cuda_ms(lambda: sort.sort2(k1, k2)),
             plain_ms=cuda_ms(lambda: sort.sort2_plain(k1, k2), 3),
             library_ms=graph_ms(lambda: torch.sort(z, dim=1)),
-            **bound(16.0 * rows * width, 3.0 * exchanges),
+            **bound(*sort_cost(2, rows, width)),
         )
 
     # Every variant the main path launches (affine k = 1, 2; DFA 4 and 5
@@ -897,16 +851,12 @@ def kernel_phase(corpus):
             ))
     for width in sort3_widths:
         ks = keys3(width)
-        lg = max(1, (width - 1).bit_length())
-        # Three int32 keys in and out per element; each compare-exchange a
-        # 96-bit compare (3 operations) and two selects.
-        exchanges = 64 * (1 << lg) // 2 * lg * (lg + 1) // 2
         per_shape.append(dict(
             kernel="sort3", shape=[64, width],
             ms=graph_ms(lambda: sort.sort3(*ks)),
             call_ms=cuda_ms(lambda: sort.sort3(*ks)),
             plain_ms=cuda_ms(lambda: sort.sort3_plain(*ks), 3),
-            library_ms=None, **bound(24.0 * 64 * width, 5.0 * exchanges),
+            library_ms=None, **bound(*sort_cost(3, 64, width)),
         ))
     for row in per_shape:
         label = row["kernel"] + (f":{row['site']}" if "site" in row else "")
@@ -1152,6 +1102,33 @@ def env_run(config, inp, work, tag, device, env=None):
                 os.environ[k] = v
 
 
+def profiled_chain_run(config, inp: str, work: str, device: str):
+    """:func:`device_run` of the chain schedule, windowed, with the profiler
+    armed: configure, the cost pass (before the launch counters are set to
+    0), the run, close.  The run carries each program's launches by kernel
+    (``program_launches``), the cost pass's seconds and the top-K table."""
+    from textblaster_tpu_torch.utils.profiler import PROFILER
+
+    costed = {}
+
+    def prepare(pipe):
+        PROFILER.configure()
+        t0 = time.perf_counter()
+        costed["launches"] = pipe.register_program_costs()
+        costed["seconds"] = time.perf_counter() - t0
+        costed["rows"] = {b: pipe.geometry.batch_for(b) for b in pipe.buckets}
+
+    try:
+        run = device_run(config, inp, work, "chain", device, prepare=prepare)
+    finally:
+        PROFILER.close()
+    run["program_launches"] = costed["launches"]
+    run["cost_pass_seconds"] = costed["seconds"]
+    run["geometry_rows"] = costed["rows"]
+    run["top_dispatches"] = PROFILER.top_dispatches()
+    return run
+
+
 def _ids(path: str):
     import pyarrow.parquet as pq
 
@@ -1159,16 +1136,15 @@ def _ids(path: str):
 
 
 def main_path(device: str, rows, work: str):
-    """The chain schedule (this port's default) windowed (the default) and
-    serial (``TEXTBLAST_NO_OVERLAP=1``, as ``run --no-overlap``) over the
-    whole corpus, once each (a second pair in turns no longer fits the
-    script's time: compare the two only within one call); then over the
-    first ``STAGED_SUBSET`` documents, windowed, the fused schedule
+    """The chain schedule (this port's default) windowed (the default, with
+    the profiler armed) over the whole corpus; then over the first
+    ``STAGED_SUBSET`` documents, windowed, the fused schedule
     (``TEXTBLAST_DEPFUSE=off``), the staged one (``TEXTBLAST_FUSED=off``)
-    and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``.
+    and the chain schedule with ``TEXTBLAST_HOST_TAILS=off``, the last
+    also serially (``TEXTBLAST_NO_OVERLAP=1``, as ``run --no-overlap``).
     Every run is held against one host-oracle run, and the windowed chain
-    run against the serial one: the same kept and excluded ids, and the
-    same bytes."""
+    run with tails off against the serial one: the same kept and excluded
+    ids, and the same bytes."""
     from textblaster_tpu_torch.config.pipeline import load_pipeline_config
     from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
 
@@ -1185,9 +1161,7 @@ def main_path(device: str, rows, work: str):
     write_parquet(warm, rows[:200])
     device_run(config, warm, work, "warmup", device)
 
-    serial = {"TEXTBLAST_NO_OVERLAP": "1"}
-    runs = [env_run(config, inp, work, tag, device, env)
-            for tag, env in (("chain", None), ("chain_serial", serial))]
+    runs = [profiled_chain_run(config, inp, work, device)]
     sub = rows[:STAGED_SUBSET]
     sub_inp = os.path.join(work, "corpus_staged.parquet")
     write_parquet(sub_inp, sub)
@@ -1241,25 +1215,252 @@ def main_path(device: str, rows, work: str):
             if run["launches"][k] != 0:
                 fail(f"the {tag} schedule launched {k}")
     for i in (0, 1):
-        a, b = summary["chain"]["outputs"][i], summary["chain_serial"]["outputs"][i]
+        a, b = summary["chain_tails_off"]["outputs"][i], summary["chain_serial"]["outputs"][i]
         if _ids(a) != _ids(b):
-            fail("chain and chain_serial keep or exclude different ids")
+            fail("chain_tails_off and chain_serial keep or exclude different ids")
         with open(a, "rb") as fa, open(b, "rb") as fb:
             if fa.read() != fb.read():
-                fail(f"chain and chain_serial wrote different bytes to {os.path.basename(a)}")
-    if not all(summary[t]["overlapped"] for t in ("chain", *dict(SUBSET_RUNS))):
+                fail(f"chain_tails_off and chain_serial wrote different bytes to "
+                     f"{os.path.basename(a)}")
+    if not all(summary[t]["overlapped"] for t in ("chain", *dict(SUBSET_RUNS))
+               if t != "chain_serial"):
         fail("a windowed run ran serially")
     if summary["chain_serial"]["overlapped"]:
         fail("a serial run was windowed")
     if summary["chain"]["host_routes"]["host_routed_astral"] <= 0:
         fail("the u16 wire routed no astral document to the host")
-    if summary["chain_tails_off"]["host_routes"]["host_tail"] != 0:
+    if summary["chain_tails_off"]["host_routes"]["host_tail"] \
+            or summary["chain_serial"]["host_routes"]["host_tail"]:
         fail("TEXTBLAST_HOST_TAILS=off still routed tails to the host")
     print("main path: " + json.dumps(summary), flush=True)
     missing = [b for b in DEFAULT_BUCKETS if summary["chain"]["batches_by_bucket"].get(str(b), 0) == 0]
     if missing:
         fail(f"buckets never dispatched: {missing}")
     return summary, (host_kept, host_excl)
+
+
+# --- the profiler ---------------------------------------------------------------
+
+#: Hand-written kernels by the names of their ``__global__`` functions in
+#: ``textblaster_tpu_torch/csrc/`` (as torch.profiler's CUDA events name them).
+HAND_KERNEL_RE = (r"chain_scan_kernel|fused_scan_kernel|scan_rows|sort_warp_kernel|"
+                  r"sort_cta_kernel|bitonic_tile_kernel|bitonic_global_step")
+#: Host calls that block on the device (torch.profiler's CUDA runtime events).
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy")
+
+
+def profile_report(summary) -> dict:
+    """The profiled chain run (:func:`profiled_chain_run`): per (bucket,
+    phase) count, mean / p50 / p99 device seconds, modeled bytes, achieved
+    bytes/s and its share of the memory rate; the top-8 slowest dispatches;
+    the recommended ``--stage-deadline-s`` (twice the slowest healthy
+    dispatch).  Checks: the HDR counts sum to the batches dispatched, bucket
+    by bucket (a fault-free run: every dispatch returned); the cost model's
+    launches times each program's dispatches are at least the run's
+    launches (its gates are open); parity as the main path checked it."""
+    from textblaster_tpu_torch.ops.cost import HBM_BYTES_PER_S
+    from textblaster_tpu_torch.utils.profiler import program_key
+
+    run = summary["chain"]
+    dp = run["report"]["device_profile"]
+    dispatch = dp["dispatch"]
+    by_bucket = {int(k): v for k, v in run["batches_by_bucket"].items()}
+    counted = {}
+    for key, e in dispatch.items():
+        b = int(key.split("/")[0][1:])
+        counted[b] = counted.get(b, 0) + e["count"]
+    total = sum(e["count"] for e in dispatch.values())
+    if total != sum(by_bucket.values()) or counted != by_bucket:
+        fail(f"profiled run: {total} dispatches recorded {counted} against the batches "
+             f"{by_bucket}")
+    if not dp["cost_fingerprint"]:
+        fail("profiled run: no cost fingerprint")
+    modeled = {}
+    for key, e in dispatch.items():
+        b, p = (int(x[1:]) for x in key.split("/"))
+        prog = run["program_launches"][program_key(b, p, run["geometry_rows"][b])]
+        for k, n in prog.items():
+            modeled[k] = modeled.get(k, 0) + n * e["count"]
+    actual = {k: v for k, v in run["pipeline_launches"].items() if v}
+    gap = {k: modeled.get(k, 0) - actual.get(k, 0) for k in sorted(set(modeled) | set(actual))}
+    if sum(modeled.values()) < sum(actual.values()):
+        fail(f"the cost model's launches {modeled} fall below the run's {actual}")
+    rows = []
+    for key, e in dispatch.items():
+        bps = e.get("achieved_bytes_per_s", 0)
+        rows.append({"program": key, "count": e["count"], "mean_s": e["mean_s"],
+                     "p50_s": e["p50_s"], "p99_s": e["p99_s"],
+                     "modeled_bytes": e.get("modeled_bytes"), "achieved_bytes_per_s": bps,
+                     "share_of_hbm": bps / HBM_BYTES_PER_S})
+        print(f"  profile {key:10s} {e['count']:4d} dispatches, mean {e['mean_s']:.6f} s, "
+              f"p50 {e['p50_s']:.6f} s, p99 {e['p99_s']:.6f} s, modeled "
+              f"{e.get('modeled_bytes')} bytes, achieved {bps / 1e9:.3f} GB/s "
+              f"({bps / HBM_BYTES_PER_S:.6f} of 3.35 TB/s)", flush=True)
+    top = run["top_dispatches"]
+    for i, t in enumerate(top):
+        print(f"  slowest #{i + 1}: {t['seconds']:.6f} s, bucket {t['bucket']}, phase "
+              f"{t['phase']}, rows {t['rows']}", flush=True)
+    deadline = 2 * top[0]["seconds"]
+    fused = summary["fused"]
+    print(f"profile: cost fingerprint {dp['cost_fingerprint'][:12]} ({len(dp['cost_model'])} "
+          f"programs, cost pass {run['cost_pass_seconds']:.3f} s); {total} dispatches = "
+          f"device batches {by_bucket}; launches modeled {modeled} >= run {actual} (gap "
+          f"{gap}); recommended --stage-deadline-s {deadline:.3f} (twice the slowest "
+          f"dispatch); {run['device_docs_per_s']:.2f} docs/s profiled, against "
+          f"{fused['device_docs_per_s']:.2f} for the next windowed run (fused, unarmed, "
+          f"{fused['received']} documents); parity {run['decision_parity']}", flush=True)
+    return {"per_program": rows, "top_dispatches": top, "stage_deadline_s": deadline,
+            "launches_modeled": modeled, "launches_run": actual, "launch_gap": gap,
+            "cost_fingerprint": dp["cost_fingerprint"],
+            "cost_pass_seconds": run["cost_pass_seconds"]}
+
+
+def _trace_events(prof):
+    """``(name, device_type, start_ns, end_ns)`` of every event a
+    ``torch.profiler`` session recorded, read from its kineto results
+    (building the profiler's function events costs far more)."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if hasattr(e, "start_ns"):
+            t0 = e.start_ns()
+            t1 = t0 + e.duration_ns()
+        else:
+            t0 = e.start_us() * 1e3
+            t1 = t0 + e.duration_us() * 1e3
+        out.append((e.name(), e.device_type(), t0, t1))
+    return out
+
+
+def batch_anatomy(corpus) -> list:
+    """One batch of corpus documents per (bucket, phase) of the default
+    ladder, run once plainly (its CUDA-event span, the reference) and once
+    under ``torch.profiler`` (CPU and CUDA activity; a session a batch):
+    the profiled span
+    split into hand-kernel time, eager PyTorch kernel time (and launches),
+    copies, device idle gaps (the span less the union of the device's
+    intervals) and the host's time blocked in synchronizing calls.  The
+    profiler slows the host, not the device: the plain span less the
+    device's busy time estimates the gaps without it.  Fails when the
+    profiler records no CUDA activity."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.packing import PACK_MARGIN, pack_documents
+    from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+
+    pipe = CompiledPipeline(load_pipeline_config(CONFIG), device="cuda")
+    hand = re.compile(HAND_KERNEL_RE)
+    cuda = torch.autograd.DeviceType.CUDA
+    out, lo = [], 0
+    for length in pipe.buckets:
+        rows = pipe.geometry.batch_for(length)
+        docs = [TextDocument(id=i, source="s", content=t) for i, t in corpus
+                if max(lo, length // 4) < len(t) <= length - PACK_MARGIN
+                and max(map(ord, t)) < 0x2E80][:rows]
+        lo = length
+        batch = pack_documents(docs, rows, length)
+        for phase in range(len(pipe.phases)):
+            plain_s = pipe.run_batch(batch, phase)[2]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, host_s, dev_s = pipe.run_batch(batch, phase)
+            torch.cuda.synchronize()
+            events = _trace_events(prof)
+            dev = [e for e in events if e[1] == cuda]
+            if not dev:
+                fail(f"torch.profiler recorded no CUDA activity at bucket {length}, phase {phase}")
+            cls = {"hand": 0.0, "eager": 0.0, "copies": 0.0}
+            n_eager = n_hand = 0
+            for name, _, t0, t1 in dev:
+                if name.startswith(("Memcpy", "Memset")):
+                    cls["copies"] += t1 - t0
+                elif hand.search(name):
+                    cls["hand"] += t1 - t0
+                    n_hand += 1
+                else:
+                    cls["eager"] += t1 - t0
+                    n_eager += 1
+            union, end = 0.0, None
+            for _, _, t0, t1 in sorted(dev, key=lambda e: e[2]):
+                if end is None or t0 > end:
+                    union += t1 - t0
+                    end = t1
+                elif t1 > end:
+                    union += t1 - end
+                    end = t1
+            syncs = [t1 - t0 for name, _, t0, t1 in events if name in SYNC_CALLS]
+            span_ns = dev_s * 1e9
+            row = {"bucket": length, "phase": phase, "rows": rows, "docs": len(docs),
+                   "plain_span_ms": plain_s * 1e3, "span_ms": span_ns / 1e6,
+                   "host_ms": host_s * 1e3,
+                   "hand_ms": cls["hand"] / 1e6, "hand_launches": n_hand,
+                   "eager_ms": cls["eager"] / 1e6, "eager_launches": n_eager,
+                   "copies_ms": cls["copies"] / 1e6, "busy_ms": union / 1e6,
+                   "gaps_ms": max(0.0, span_ns - union) / 1e6,
+                   "plain_gaps_ms": max(0.0, plain_s * 1e9 - union) / 1e6,
+                   "sync_ms": sum(syncs) / 1e6, "sync_calls": len(syncs)}
+            out.append(row)
+            print(f"  anatomy b{length}/p{phase} ({len(docs)} docs): profiled span "
+                  f"{row['span_ms']:.3f} ms = hand {row['hand_ms']:.3f} ({n_hand} launches) + "
+                  f"eager {row['eager_ms']:.3f} ({n_eager} launches) + copies "
+                  f"{row['copies_ms']:.3f} + gaps {row['gaps_ms']:.3f} ms; host blocked in "
+                  f"{len(syncs)} syncs {row['sync_ms']:.3f} ms; plain span "
+                  f"{row['plain_span_ms']:.3f} ms, of it gaps {row['plain_gaps_ms']:.3f} ms",
+                  flush=True)
+    return out
+
+
+def sentinel_phase() -> dict:
+    """The sentinel workload's profile on ``cuda`` and on ``cpu`` in one
+    process, under the u16 wire the sentinel pins: equal dispatch counts and
+    an equal cost fingerprint (the shape model does not depend on the
+    device), both passing the committed baseline
+    (``profiles/sentinel_baseline_torch.json``, full check) and the JAX
+    package's baseline's dispatch counts."""
+    from textblaster_tpu_torch.utils.profiler import collect_sentinel_profile, compare_profiles
+
+    prev = os.environ.get("TEXTBLAST_WIRE")
+    os.environ["TEXTBLAST_WIRE"] = "u16"
+    t0 = time.perf_counter()
+    try:
+        got = {dev: collect_sentinel_profile(device=dev) for dev in ("cuda", "cpu")}
+    finally:
+        if prev is None:
+            del os.environ["TEXTBLAST_WIRE"]
+        else:
+            os.environ["TEXTBLAST_WIRE"] = prev
+    seconds = time.perf_counter() - t0
+    counts = {dev: {pk: p["dispatch_counts"] for pk, p in g["programs"].items()}
+              for dev, g in got.items()}
+    fps = {dev: g["cost_fingerprint"] for dev, g in got.items()}
+    if counts["cuda"] != counts["cpu"] or fps["cuda"] != fps["cpu"] or not fps["cuda"]:
+        fail(f"sentinel: cuda and cpu differ: counts {counts}, fingerprints {fps}")
+    with open(os.path.join(ROOT, "profiles", "sentinel_baseline_torch.json")) as f:
+        status, findings = compare_profiles(json.load(f), got["cuda"])
+    with open(os.path.join(ROOT, "profiles", "sentinel_baseline.json")) as f:
+        jax_counts = {pk: p["dispatch_counts"] for pk, p in json.load(f)["programs"].items()}
+    if status != "pass" or findings or counts["cuda"] != jax_counts:
+        fail(f"sentinel against the baselines: {status} {findings}; counts {counts['cuda']}, "
+             f"the JAX package's {jax_counts}")
+    print(f"sentinel: cuda and cpu give the same dispatch counts {counts['cuda']} (the JAX "
+          f"package's baseline's) and cost fingerprint {fps['cuda'][:12]}, which passes "
+          f"profiles/sentinel_baseline_torch.json; {seconds:.1f} s", flush=True)
+    return {"dispatch_counts": counts["cuda"], "cost_fingerprint": fps["cuda"],
+            "seconds": seconds}
+
+
+def profile_phase(summary, corpus) -> dict:
+    t0 = time.perf_counter()
+    res = {"main_path": profile_report(summary), "anatomy": batch_anatomy(corpus),
+           "sentinel": sentinel_phase()}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"profile phase: {res['seconds']:.1f} s", flush=True)
+    return res
 
 
 # --- the CLI --------------------------------------------------------------------
@@ -1367,6 +1568,7 @@ def cli_phase(rows, work: str, device: str = "cuda"):
             fail(f"the CLI's summary line is not the JAX package's: {out[:300]!r}")
         armed = armed_cli_run(inp, work, device, kept, excl, float(m_off.group(2)))
         telemetry = telemetry_cli_run(inp, work, device, kept, excl, float(m_off.group(2)))
+        profiled = profiled_cli_run(inp, work, device, kept, excl, float(m_off.group(2)))
     finally:
         cli.setup_prometheus_metrics = real
         for server in servers:
@@ -1412,6 +1614,7 @@ def cli_phase(rows, work: str, device: str = "cuda"):
     return {"documents": CLI_DOCS, "wall_seconds": wall, "summary_line": m.group(0),
             "report": report, "scrape_bytes": len(body), "scrape_samples": len(scraped),
             "missing_input": err_missing.strip(), "armed": armed, "telemetry": telemetry,
+            "profiled": profiled,
             "input": inp,
             "outputs": (kept, excl)}
 
@@ -1534,6 +1737,48 @@ def armed_cli_run(inp, work, device, kept_off, excl_off, rate_off):
             "kernel_us": kernel_us, "batch_us": batch_us, "busy": busy,
             "journal_kinds": counts, "slo": report["slo"],
             "healthz": answers["/healthz"], "slo_endpoint": answers["/slo"][1]}
+
+
+def profiled_cli_run(inp, work, device, kept_off, excl_off, rate_off):
+    """The CLI run again over the same documents with ``--profile`` and
+    ``--run-report``.  Checks: kept and excluded files byte-identical to
+    the plain run's; the report's ``device_profile`` dispatch counts summing
+    to its device batches; a cost fingerprint; the ``Device profile:``
+    line.  Prints docs/s profiled against plain."""
+    import re
+
+    d = os.path.join(work, "cli_profiled")
+    os.makedirs(d, exist_ok=True)
+    kept, excl = os.path.join(d, "kept.parquet"), os.path.join(d, "excl.parquet")
+    report_path = os.path.join(d, "report.json")
+    rc, out, err = _cli_main(["run", "-i", inp, "-c", CONFIG, "-o", kept, "-e", excl,
+                              "--device", device, "--profile", "--run-report", report_path])
+    if rc != 0:
+        fail(f"the profiled CLI run exited {rc}: {err[-500:]!r}")
+    for a, b in ((kept, kept_off), (excl, excl_off)):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"the profiled run's {os.path.basename(a)} differs from the plain run's")
+    with open(report_path) as f:
+        report = json.load(f)
+    dp = report["device_profile"]
+    n = sum(e["count"] for e in dp["dispatch"].values())
+    if n != report["occupancy"]["device_batches"] or not dp["cost_fingerprint"]:
+        fail(f"the profiled run's report: {n} dispatches for "
+             f"{report['occupancy']['device_batches']} device batches, fingerprint "
+             f"{dp['cost_fingerprint']}")
+    line = [ln for ln in err.splitlines()
+            if ln.startswith(f"Device profile: cost fingerprint {dp['cost_fingerprint'][:12]}")]
+    m = re.match(SUMMARY_RE, out.splitlines()[0] if out else "")
+    if not line or not m:
+        fail(f"the profiled run's summary: {out[:300]!r}, {err[-300:]!r}")
+    rate = float(m.group(2))
+    print(f"cli profiled: {rate} docs/s profiled against {rate_off} plain "
+          f"({rate / rate_off:.4f}x), files byte-identical; {n} dispatches = device batches; "
+          f"{line[0]}", flush=True)
+    return {"docs_per_s": rate, "docs_per_s_plain": rate_off, "dispatches": n,
+            "cost_fingerprint": dp["cost_fingerprint"], "line": line[0],
+            "top_dispatches": dp["top_dispatches"]}
 
 
 TELEMETRY_POLL_S = 1.0  # how often the telemetry run's poller asks GET /telemetry
@@ -2066,7 +2311,7 @@ def checkpoint_phase(rows, work: str, cli_run, known_keys, device: str = "cuda")
 
 # --- fault phase --------------------------------------------------------------
 
-FAULT_DOCS = 2000  # the retry, split and hang runs' documents
+FAULT_DOCS = 1000  # the retry, split and hang runs' documents
 OUTAGE_DOCS = 500  # the outage and fatal runs' documents
 HANG_DEADLINE_MIN_S = 0.5  # the hang run's least stage deadline
 #: Documents longer than this are the real out-of-memory run's: every one
@@ -2426,7 +2671,8 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    print(f"device: {name} | nvidia-smi: {smi}", flush=True)
+    print(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
 
     from textblaster_tpu_torch.kernels import build as kb
 
@@ -2454,6 +2700,7 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     summary, oracle = main_path("cuda", rows, work)
     losses = launch_losses(summary["chain"], per_shape, timers)
+    profiled = profile_phase(summary, rows)
     cli_run = cli_phase(rows, work)
     cli_run["registry_op_us"] = registry_op_seconds() * 1e6
     print(f"metrics: one registry increment takes {cli_run['registry_op_us']:.3f} us "
@@ -2494,9 +2741,11 @@ def main() -> int:
     out_dir = os.environ.get("CHIP_SMOKE_OUT") or work
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
+        json.dump({"device": name, "nvidia_smi": smi, "torch": torch.__version__,
+                   "cuda": torch.version.cuda, "kernels": kernels,
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
-                   "main_path": summary, "cli": cli_run, "auto_geometry": geometry,
+                   "main_path": summary, "profile": profiled, "cli": cli_run,
+                   "auto_geometry": geometry,
                    "checkpoint": checkpoint, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

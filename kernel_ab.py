@@ -337,7 +337,7 @@ def main() -> int:
     smi = cs.smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
     from textblaster_tpu_torch.kernels import build as kb
-    from textblaster_tpu_torch.ops import scan, sort
+    from textblaster_tpu_torch.ops import cost, scan, sort
 
     out_dir = os.environ.get("AB_OUT") or os.path.join(ROOT, "build", "kernel_ab")
     libs = {"affine_scan": "scan", "dfa_scan": "scan", "sort2": "sort", "sort3": "sort",
@@ -413,7 +413,7 @@ def main() -> int:
                 accs = (a1, a2)[:k]
                 plain = scan.affine_hash_scan_plain(m, accs)
                 call = lambda: scan.affine_hash_scan(m, accs)  # noqa: E731
-                ab("affine_scan", f"k={k}", shape, cs.bound(*cs.scan_cost("affine_scan", b, n, k)),
+                ab("affine_scan", f"k={k}", shape, cost.bound(*cost.scan_cost("affine_scan", b, n, k)),
                    on("old", call), on("new", call), plain)
                 for geo in SWEEP[("affine", width)] if args.sweep else ():
                     sweep("affine_scan", str(k), shape, list(geo),
@@ -424,7 +424,7 @@ def main() -> int:
                 plain = (scan.dfa_compose_scan_plain(f, ns),)
                 call = lambda: (scan.dfa_compose_scan(f, ns),)  # noqa: E731
                 ab("dfa_scan", f"n_states={ns}", shape,
-                   cs.bound(*cs.scan_cost("dfa_scan", b, n, ns)),
+                   cost.bound(*cost.scan_cost("dfa_scan", b, n, ns)),
                    on("old", call), on("new", call), plain)
                 for geo in SWEEP[("dfa", width)] if args.sweep else ():
                     sweep("dfa_scan", str(ns), shape, list(geo),
@@ -443,7 +443,7 @@ def main() -> int:
                 continue
             groups = make()
             plain = [x for g in scan.fused_scan_plain(groups) for x in g]
-            ab("fused_scan", site, shape, cs.bound(*cs.fused_cost(groups)),
+            ab("fused_scan", site, shape, cost.bound(*cost.fused_cost(groups)),
                lambda: old_fused(old["fused"], groups),
                lambda: [x for g in scan.fused_scan(groups) for x in g], plain)
             for threads in FUSED_SWEEP if args.sweep else ():
@@ -481,9 +481,7 @@ def main() -> int:
         k2 = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(rows, width))
                               .astype(np.int32)).to(dev)
         z = (k1.long() << 32) | k2.long()
-        lg = max(1, (width - 1).bit_length())
-        exchanges = rows * (1 << lg) // 2 * lg * (lg + 1) // 2
-        bnd = cs.bound(16.0 * rows * width, 3.0 * exchanges)
+        bnd = cost.bound(*cost.sort_cost(2, rows, width))
         ab("sort2", "", (rows, width), bnd, *sort_sides((k1, k2)), sort.sort2_plain(k1, k2),
            library=lambda: torch.sort(z, dim=1))
         if (rows, width) in ((256, 256), (256, 2048)):
@@ -499,9 +497,7 @@ def main() -> int:
             ks.append(torch.from_numpy(k).to(dev))
         ks = tuple(ks)
         plain = sort.sort3_plain(*ks)
-        lg = max(1, (width - 1).bit_length())
-        exchanges = 64 * (1 << lg) // 2 * lg * (lg + 1) // 2
-        bnd = cs.bound(24.0 * 64 * width, 5.0 * exchanges)
+        bnd = cost.bound(*cost.sort_cost(3, 64, width))
         ab("sort3", str(sort.sort_geometry(width, 3)[1:]), (64, width), bnd, *sort_sides(ks),
            plain)
         if width in (256, 2048):
@@ -519,7 +515,7 @@ def main() -> int:
         for site, passes in cs.site_programs(corpus, shape, dev).items():
             width = tuple(scan._chain_plan(passes)[1][0].shape)
             call = lambda: _flat(scan.chain_scan(passes))  # noqa: E731
-            ab("chain_scan", f"{site}@{shape[1]}", width, cs.bound(*cs.chain_cost(passes)),
+            ab("chain_scan", f"{site}@{shape[1]}", width, cost.bound(*cost.chain_cost(passes)),
                on("old", call), on("new", call), _flat(scan.chain_scan_plain(passes)))
 
     os.makedirs(out_dir, exist_ok=True)

@@ -5,15 +5,17 @@ The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
 ``--device-batch`` and ``--auto-geometry``, ``--pipeline-depth`` and
 ``--no-overlap``, ``--errors-file``, ``--stage-deadline-s``,
 ``--metrics-port``, ``--run-report``, ``--trace``, ``--trace-device``,
-``--events-file``, ``--slo``, ``--doc-sample-rate``, ``--checkpoint-dir``
-and ``--checkpoint-every`` among them), spelled the same way and refused in
+``--events-file``, ``--slo``, ``--doc-sample-rate``, ``--profile``,
+``--checkpoint-dir`` and ``--checkpoint-every`` among them), spelled the
+same way and refused in
 the same combinations, plus ``--backend device|host`` and ``--device cuda|cpu``
 (``cuda`` is the default; the run fails rather than fall back when CUDA is
 absent).  A run prints the JAX package's summary line and the tail lines
 whose layers the port has (dead-letter rows, the breaker warning, host
 fallbacks, read errors; unless ``--quiet``, the stage, occupancy and
-funnel summaries, the trace, journal and SLO lines, and with
-``--doc-sample-rate`` the per-document latency block, on stderr).
+funnel summaries, the trace, journal and SLO lines, with
+``--doc-sample-rate`` the per-document latency block, and with
+``--profile`` the device-profile line, on stderr).
 
 ``--trace-device LOGDIR`` is where the ports differ in means: the JAX
 package captures ``jax.profiler.trace``; the port writes per-kernel and
@@ -49,6 +51,7 @@ from .utils.metrics import (
     stage_snapshot,
     write_run_report,
 )
+from .utils.profiler import PROFILER
 from .utils.slo import SLO, parse_slo_arg
 from .utils.telemetry import TELEMETRY, format_latency_summary
 from .utils.trace import TRACER, device_profile
@@ -184,6 +187,18 @@ def build_parser() -> argparse.ArgumentParser:
                           "/telemetry.  Deterministic on the doc id, so "
                           "every run samples the same documents.  "
                           "0 = off (zero hot-path cost)")
+    run.add_argument("--profile", action="store_true",
+                     help="Device-time attribution: a cost pass models each "
+                          "(bucket, phase) program's bytes and integer "
+                          "operations from its hand-kernel launches (a "
+                          "shape model, fingerprinted), then each dispatch "
+                          "feeds per-(bucket, phase) device-time histograms "
+                          "(CUDA-event seconds on cuda) with achieved-"
+                          "bytes/s gauges against the model, and a top-K "
+                          "slowest-dispatch table.  Lands in the run "
+                          "report's device_profile section, /metrics, and "
+                          "--trace span args.  Off by default (the hot path "
+                          "then pays a single attribute check)")
     run.add_argument("--quiet", action="store_true", help="Suppress progress output")
     run.add_argument("--checkpoint-dir", default=None,
                      help="Enable chunk-level checkpointing in this directory; "
@@ -296,6 +311,10 @@ def _cmd_run(args: argparse.Namespace) -> int:
         TRACER.configure(args.trace, process_name="textblast", pid=0)
     if args.doc_sample_rate > 0:
         TELEMETRY.configure(args.doc_sample_rate)
+    if args.profile:
+        # The cost pass runs in the device loop, after the pipeline is built
+        # (and calibrated) and before its first dispatch.
+        PROFILER.configure()
     WATCHDOG.configure(config.resilience.stage_deadline_s)
     events_path = args.events_file or (
         os.environ.get("TEXTBLAST_EVENTS", "").strip() or None
@@ -330,7 +349,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         "speculate_depth": None,
         "num_processes": 1,
         "doc_sample_rate": int(args.doc_sample_rate),
-        "profile": False,
+        "profile": bool(args.profile),
         "stage_deadline_s": float(config.resilience.stage_deadline_s),
         "events_file": args.events_file,
         "slo": dict(sorted(slo_objectives.items())) or None,
@@ -418,6 +437,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
     finally:
         TRACER.close()
         TELEMETRY.close()  # stops the rollup ticker; HDR state stays in METRICS
+        PROFILER.close()  # stops recording; captured state stays for the report
         SLO.close()  # final evaluation tick, then disarm
         EVENTS.close()  # flushes the journal spill; counters stay in METRICS
 
@@ -480,6 +500,17 @@ def _cmd_run(args: argparse.Namespace) -> int:
             )
         if args.doc_sample_rate > 0:
             print(format_latency_summary(latency_before), file=sys.stderr)
+        if args.profile:
+            fp = PROFILER.cost_fingerprint()
+            top = PROFILER.top_dispatches()
+            line = f"Device profile: cost fingerprint {str(fp)[:12]}"
+            if top:
+                worst = top[0]
+                line += (
+                    f"; slowest dispatch {worst['seconds'] * 1e3:.1f} ms "
+                    f"(bucket {worst['bucket']}, phase {worst['phase']})"
+                )
+            print(line, file=sys.stderr)
         if args.trace:
             print(f"Trace written -> {args.trace} "
                   "(load at https://ui.perfetto.dev)", file=sys.stderr)

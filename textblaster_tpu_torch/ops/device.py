@@ -214,6 +214,11 @@ def shift_scan_tuple(op, identities, xs):
 
 
 def _seg_scan(op, identity, values: torch.Tensor, reset: torch.Tensor) -> torch.Tensor:
+    # Dispatch accounting (a no-op unless a count_scan_dispatches scope is
+    # active).  Imported lazily: scan imports this module.
+    from .scan import record_scan_dispatch
+
+    record_scan_dispatch("lax_scan")
     # Virtual elements left of position 0 are (op identity, reset=True).
     v, _ = shift_scan_tuple(op, (identity, True), (values, reset))
     return v
@@ -222,6 +227,9 @@ def _seg_scan(op, identity, values: torch.Tensor, reset: torch.Tensor) -> torch.
 def assoc_scan1(op, identity, x: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of one tensor along axis 1 under associative ``op``;
     ``identity`` is a scalar or a tensor broadcastable to a pad block."""
+    from .scan import record_scan_dispatch
+
+    record_scan_dispatch("lax_scan")
 
     def tuple_op(a, b):
         return (op(a[0], b[0]),)

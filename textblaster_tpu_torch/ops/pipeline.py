@@ -60,6 +60,16 @@ also turns the two timing events that bracket each batch into a
 kernels' own spans, after the batch's own synchronize: no host sync is
 added (one ``synchronize`` of the stream arms the pipeline's
 :class:`~..utils.trace.DeviceClock`).
+
+The profiler's seams are the JAX package's (:mod:`..utils.profiler`):
+each dispatch that returned records its device seconds (the batch's two
+CUDA events on ``cuda``, ``run_batch``'s host seconds on the CPU) under
+its (bucket, phase) inside the caller's ``device_wait`` span, and, with
+the profiler armed, :func:`process_documents_device` first runs the cost
+pass (:meth:`CompiledPipeline.register_program_costs`): every program's
+function once on a zero batch of its shape under the dispatch-count scope
+of ``ops/scan.py``, whose recorded launches give the program's
+shape-determined cost.
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ from ..resilience.watchdog import WATCHDOG
 from ..utils.events import EVENTS
 from ..utils.metrics import FILTER_DROP_PREFIX, METRICS
 from ..utils.overlap import prefetch_iter, shared_pack_pool
+from ..utils.profiler import PROFILER, program_key
 from ..utils.telemetry import TELEMETRY
 from ..utils.trace import KERNEL_SPANS, TRACER, DeviceClock
 from .geometry import DeviceGeometry
@@ -569,6 +580,112 @@ class CompiledPipeline:
             self._fns[key] = self._build_fn(length, phase)
         return self._fns[key]
 
+    # --- dispatch accounting and the cost model ------------------------------
+
+    def _zero_program(self, length: int, phase: int, rows: int):
+        """The ``(length, phase)`` function once on a zero batch of ``rows``
+        rows, on this pipeline's device, under a dispatch-count scope:
+        ``(scope, stats)``.  Nothing of the run's accounting moves (no
+        ``dispatch_batch``: no batch, occupancy or upload counters)."""
+        fn = self._fn_for(length, phase)
+        cps = torch.zeros((rows, length), dtype=torch.int32, device=self.device)
+        lengths = torch.zeros((rows,), dtype=torch.int32, device=self.device)
+        guard = torch.cuda.device(self.device) if self.device.type == "cuda" else nullcontext()
+        with guard, scan.count_scan_dispatches() as counts:
+            stats = fn(cps, lengths)
+        return counts, stats
+
+    def scan_dispatch_counts(
+        self, length: int, phase: int = 0, rows: Optional[int] = None
+    ) -> Dict[str, int]:
+        """Per-kind scan dispatch counts of one (bucket, phase) program, the
+        JAX package's method: "fused" (a ``fused_scan`` or a whole
+        ``chain_scan``), "pallas_scan" (the per-scan kernels) and
+        "lax_scan" (the plain segmented scans).  The program runs once on a
+        zero batch with its gates open (``ops/scan.py`` ``gates_open``), so
+        the counts depend on the shapes and the schedule switches alone."""
+        rows = rows or self.geometry.batch_for(length)
+        counts, _ = self._zero_program(length, phase, rows)
+        return dict(counts)
+
+    def _warmup_jobs(self, include_split_rows: bool = True):
+        """``(length, phase, rows)`` of every (bucket, phase) program at
+        geometry rows, plus the degradation ladder's split rows (the rows
+        ``_execute_packed`` packs each half to), as in the JAX package."""
+        jobs = []
+        for length in self.buckets:
+            full = self.geometry.batch_for(length)
+            variants = [full]
+            sub = self._split_rows(full)
+            if include_split_rows and self._split_retry and sub != full:
+                variants.append(sub)
+            for phase in range(len(self.phases)):
+                jobs.extend((length, phase, rows) for rows in variants)
+        return jobs
+
+    def register_program_costs(
+        self, include_split_rows: bool = True
+    ) -> Dict[str, Dict[str, int]]:
+        """The cost pass: register every program of :meth:`_warmup_jobs`
+        with the PROFILER under ``source: "shape-model"`` (the port's
+        counterpart of the JAX ``register_installed_costs``, with no
+        compile to analyze).  Each program runs once on a zero batch of its
+        shape (:meth:`_zero_program`); its cost is
+
+        * ``flops``: the modeled integer operations of its hand-kernel
+          launches (``ops/cost.py``);
+        * ``argument_bytes``: the wire upload, ``rows * L`` code points of
+          2 bytes (u16) or 4 (cp32), plus ``rows * 4`` of lengths;
+        * ``output_bytes``: the stats dict's bytes;
+        * ``bytes_accessed``: the launches' modeled bytes plus both;
+        * ``launches``: its hand-kernel launches (gates open: an upper
+          bound on a real batch's).
+
+        Programs the PROFILER already holds are skipped.  Returns the
+        launches by kernel of each program costed now."""
+        known = PROFILER.cost_entries()
+        launches: Dict[str, Dict[str, int]] = {}
+        t0 = time.perf_counter()
+        for length, phase, rows in self._warmup_jobs(include_split_rows):
+            pk = program_key(length, phase, rows)
+            if pk in known:
+                continue
+            counts, stats = self._zero_program(length, phase, rows)
+            arg = rows * length * (2 if self.wire_u16 else 4) + rows * 4
+            out = sum(v.numel() * v.element_size() for v in stats.values())
+            PROFILER.record_program_cost(
+                length, phase, rows,
+                {
+                    "flops": int(round(sum(o for _, _, o in counts.launches))),
+                    "bytes_accessed": int(round(sum(b for _, b, _ in counts.launches)))
+                    + arg + out,
+                    "argument_bytes": arg,
+                    "output_bytes": out,
+                    "launches": len(counts.launches),
+                },
+                "shape-model",
+            )
+            by_kernel: Dict[str, int] = {}
+            for key, _, _ in counts.launches:
+                by_kernel[key[0]] = by_kernel.get(key[0], 0) + 1
+            launches[pk] = by_kernel
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if launches:
+            logger.info("Cost pass: %d programs in %.3f s", len(launches),
+                        time.perf_counter() - t0)
+        return launches
+
+    def _record_dispatch(self, batch: PackedBatch, phase: int, result) -> dict:
+        """``PROFILER.record_dispatch`` for a ``run_batch`` result that
+        returned: the batch's device seconds from its two CUDA events on
+        ``cuda``, ``run_batch``'s host seconds on the CPU."""
+        _, host_s, dev_s = result
+        return PROFILER.record_dispatch(
+            batch.max_len, phase, batch.batch_size,
+            dev_s if self.device.type == "cuda" else host_s,
+        )
+
     def dispatch_batch(self, batch: PackedBatch, phase: int = 0) -> Dict[str, torch.Tensor]:
         """Upload one packed batch and run its (bucket, phase) function on
         the current stream; the returned stats stay on the device.  The
@@ -776,12 +893,17 @@ class CompiledPipeline:
                     result = self.run_batch(batch, phase)
                     if TELEMETRY.enabled:
                         TELEMETRY.mark("device_wait", (d.id for d in batch.docs))
+                    if PROFILER.enabled:
+                        self._record_dispatch(batch, phase, result)
                     return result
                 p = dispatcher.submit(batch, phase)
             if TELEMETRY.enabled:
                 TELEMETRY.mark("device_wait", (d.id for d in batch.docs))
-            with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}):
-                return self._result(p, dispatcher)
+            with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}) as sp:
+                result = self._result(p, dispatcher)
+                if PROFILER.enabled:
+                    sp.add_args(self._record_dispatch(batch, phase, result))
+                return result
 
         return self._retry.run(
             attempt, seam="device", on_retry=lambda e, _: _drop_frames(e)
@@ -837,6 +959,9 @@ class CompiledPipeline:
         stalls in its readiness wait.
         """
         first = None
+        # A serial run's finished result is recorded below; a window
+        # future's inside the caller's device_wait span.
+        profiled = False
         if TELEMETRY.enabled and isinstance(pending, (Future, tuple)):
             # The caller starts waiting on the batch (serially its result
             # is already here: the dispatch stage held the whole batch).
@@ -844,9 +969,12 @@ class CompiledPipeline:
         if isinstance(pending, Future):
             t0 = time.perf_counter()
             try:
-                with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}):
+                with TRACER.span("device_wait", {"bucket": batch.max_len, "phase": phase}) as sp:
                     dispatcher.wait(pending)
                     exc = pending.exception()
+                    if exc is None and PROFILER.enabled:
+                        sp.add_args(self._record_dispatch(batch, phase, pending.result()))
+                        profiled = True
             except StallError as e:
                 first = e
             else:
@@ -867,6 +995,8 @@ class CompiledPipeline:
             # the device was never asked.
             return self._host_rerun(batch.docs), []
         if isinstance(pending, tuple):
+            if PROFILER.enabled and not profiled:
+                self._record_dispatch(batch, phase, pending)
             self._breaker.record_success()
             return self._assemble(batch, pending, phase)
         try:
@@ -1837,6 +1967,12 @@ def process_documents_device(
             pipeline.host_executor, docs, on_read_error=on_read_error
         )
         return
+
+    if PROFILER.enabled:
+        # The cost pass, before the first dispatch (programs the PROFILER
+        # already holds are skipped: the checkpointed runner calls this
+        # once a chunk).
+        pipeline.register_program_costs()
 
     def doc_stream():
         for item in docs:

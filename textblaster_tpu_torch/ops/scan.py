@@ -30,24 +30,39 @@ the chain off too, as in the JAX package).
 adds to it.  Under ``--trace-device`` each launch is also bracketed by two
 timing events (``utils/trace.py`` ``KERNEL_SPANS``), named by the launch's
 ``SHAPE_LAUNCHES`` key.
+
+Dispatch accounting (the JAX package's ``count_scan_dispatches``): inside a
+:func:`count_scan_dispatches` scope on this thread, every wrapper, on any
+device, counts its scan dispatch by kind ("pallas_scan" for the per-scan
+kernels, "fused" for ``fused_scan`` and for one ``chain_scan`` however many
+passes it carries; ``ops/device.py`` counts its plain scans as
+"lax_scan") and records the launch it stands for with its modeled bytes
+and operations (``ops/cost.py``); ``sort2`` and ``sort3`` record their
+launches without counting a scan dispatch.  The scope also opens the
+host-sync gates that stand for the JAX package's ``lax.cond``
+(:func:`gates_open`), so what it records depends on the shapes alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import threading
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels.build import check
 from ..utils.trace import KERNEL_SPANS
+from . import cost
 from .device import shift_scan_tuple
 
 __all__ = [
     "CHAIN_SHAPE_LAUNCHES",
     "CHAIN_SITE_LAUNCHES",
     "ChainGeometry",
+    "DispatchCounts",
     "LAUNCHES",
     "SHAPE_LAUNCHES",
     "PREPS",
@@ -66,6 +81,7 @@ __all__ = [
     "chain_scan_ok",
     "chain_scan_plain",
     "copy_group",
+    "count_scan_dispatches",
     "depfuse_enabled",
     "dfa_compose_scan",
     "dfa_compose_scan_plain",
@@ -76,6 +92,9 @@ __all__ = [
     "fused_scan",
     "fused_scan_ok",
     "fused_scan_plain",
+    "gates_open",
+    "record_launch",
+    "record_scan_dispatch",
     "scan_geometry",
     "segmax_group",
 ]
@@ -91,6 +110,80 @@ SHAPE_LAUNCHES: Dict[Tuple[Any, ...], int] = {}
 #: caller names), and by ``(site, width)``.
 CHAIN_SITE_LAUNCHES: Dict[str, int] = {}
 CHAIN_SHAPE_LAUNCHES: Dict[Tuple[Optional[str], int], int] = {}
+
+
+# --- dispatch accounting ----------------------------------------------------
+#
+# Thread-local, and a no-op unless a count_scan_dispatches() scope is active
+# on this thread: a scope armed on one thread never sees another thread's
+# launches (the dispatch thread's real batches), and the hot path pays one
+# getattr.
+
+_tls = threading.local()
+
+
+class DispatchCounts(dict):
+    """Per-kind scan dispatch counts of one :func:`count_scan_dispatches`
+    scope (``dict(counts)`` is the JAX package's result), and in
+    :attr:`launches` every hand-kernel launch the scope saw, as
+    ``(SHAPE_LAUNCHES key, modeled bytes, modeled operations)``."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.launches: List[Tuple[Tuple[Any, ...], float, float]] = []
+
+    def dispatch(self, kind: str) -> None:
+        self[kind] = self.get(kind, 0) + 1
+
+    def launch(self, key: Tuple[Any, ...], model: Callable[[], Tuple[float, float]]) -> None:
+        """One launch of ``key`` (``(kernel, rows, width, ...)``), with
+        ``model()``'s ``(bytes, operations)``; a launch on an empty tensor
+        (no rows or no lanes) launches nothing on the card and is not
+        recorded on any device."""
+        if key[1] and key[2]:
+            self.launches.append((key, *model()))
+
+
+def _scope() -> Optional[DispatchCounts]:
+    return getattr(_tls, "dispatch_counts", None)
+
+
+def record_scan_dispatch(kind: str) -> None:
+    """Count one scan dispatch of ``kind`` ("fused", "pallas_scan",
+    "lax_scan") if a :func:`count_scan_dispatches` scope is active."""
+    scope = _scope()
+    if scope is not None:
+        scope.dispatch(kind)
+
+
+def record_launch(key: Tuple[Any, ...], model: Callable[[], Tuple[float, float]]) -> None:
+    """Record one hand-kernel launch (:meth:`DispatchCounts.launch`) if a
+    scope is active."""
+    scope = _scope()
+    if scope is not None:
+        scope.launch(key, model)
+
+
+def gates_open() -> bool:
+    """Whether a :func:`count_scan_dispatches` scope is active on this
+    thread.  The statistic functions' host-sync gates (the JAX package's
+    ``lax.cond``, whose both branches its ``eval_shape`` traces) take their
+    costly branch when it is, so a count does not depend on the data."""
+    return _scope() is not None
+
+
+@contextlib.contextmanager
+def count_scan_dispatches():
+    """Collect the scan dispatches and kernel launches issued on this thread
+    while the scope is active (:class:`DispatchCounts`)."""
+    prev = _scope()
+    counts = DispatchCounts()
+    _tls.dispatch_counts = counts
+    try:
+        yield counts
+    finally:
+        _tls.dispatch_counts = prev
+
 
 #: The JAX fused kernel's lane cap (``pallas_scan._FUSED_MAX_LANES``), kept
 #: so that every bucket takes the JAX package's schedule.
@@ -190,8 +283,9 @@ def _stream(t: torch.Tensor) -> int:
 def _span(device: torch.device):
     """The start event of a launch's device span when ``--trace-device`` is
     armed (:data:`~..utils.trace.KERNEL_SPANS`), else None: one attribute
-    check."""
-    return KERNEL_SPANS.begin(device) if KERNEL_SPANS.enabled else None
+    check.  A launch inside a :func:`count_scan_dispatches` scope (a cost
+    pass, outside every batch) takes no span."""
+    return KERNEL_SPANS.begin(device) if KERNEL_SPANS.enabled and _scope() is None else None
 
 
 def _count(kernel: str, rows: int, width: int, *variant: int, span=None, device=None) -> None:
@@ -264,6 +358,12 @@ def affine_hash_scan(
     multiplier is internal).  All operands are contiguous int32
     ``[rows, len]`` tensors on one device; any shape is taken."""
     accs = tuple(accs)
+    scope = _scope()
+    if scope is not None:
+        rows, length = m.shape
+        scope.dispatch("pallas_scan")
+        scope.launch(("affine_scan", rows, length, len(accs)),
+                     lambda: cost.scan_cost("affine_scan", rows, length, len(accs)))
     if not m.is_cuda:
         if m.device.type == "cpu":
             return affine_hash_scan_plain(m, accs)
@@ -298,6 +398,12 @@ def dfa_compose_scan(fns: torch.Tensor, n_states: int) -> torch.Tensor:
     ``n_states`` <= 8.  ``fns`` is a contiguous int32 ``[rows, len]``
     tensor whose nibbles below ``n_states`` hold states below 8 (valid maps
     hold states below ``n_states``)."""
+    scope = _scope()
+    if scope is not None:
+        rows, length = fns.shape
+        scope.dispatch("pallas_scan")
+        scope.launch(("dfa_scan", rows, length, n_states),
+                     lambda: cost.scan_cost("dfa_scan", rows, length, n_states))
     if not fns.is_cuda:
         if fns.device.type == "cpu":
             return dfa_compose_scan_plain(fns, n_states)
@@ -462,6 +568,11 @@ def fused_scan(groups: Sequence[dict]) -> List[Tuple[torch.Tensor, ...]]:
     if not groups:
         raise ValueError("fused_scan: no groups")
     dev = groups[0]["xs"][0].device
+    scope = _scope()
+    if scope is not None:
+        rows, length = groups[0]["xs"][0].shape
+        scope.dispatch("fused")
+        scope.launch(("fused_scan", rows, length), lambda: cost.fused_cost(groups))
     if dev.type == "cpu":
         return fused_scan_plain(groups)
     if dev.type != "cuda":
@@ -1057,6 +1168,12 @@ def chain_scan(passes: Sequence[dict], site: Optional[str] = None
     :func:`chain_geometry`.  Callers gate on :func:`chain_scan_ok` first."""
     passes = list(passes)
     key, ext = _chain_key(passes)
+    scope = _scope()
+    if scope is not None:
+        # One chain books as ONE "fused" dispatch, as in the JAX package.
+        scope.dispatch("fused")
+        if ext:
+            scope.launch(("chain_scan", *ext[0].shape), lambda: cost.chain_cost(passes))
     if not ext or ext[0].device.type == "cpu":
         return chain_scan_plain(passes)
     dev = ext[0].device

@@ -16,6 +16,10 @@ index arithmetic in numpy).  Wider rows take the shared-memory network
 with global passes.
 
 ``sort3`` has no caller on the port's path, as in the JAX package.
+
+Inside a ``count_scan_dispatches`` scope (``ops/scan.py``) both record
+their launch and its modeled bytes and operations (``ops/cost.py``) on any
+device; neither counts as a scan dispatch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..utils.trace import KERNEL_SPANS
+from . import cost
+from .scan import gates_open, record_launch
 
 __all__ = ["LAUNCHES", "REG_WIDTH2", "REG_WIDTH3", "SHAPE_LAUNCHES", "SortGeometry",
            "sort2", "sort2_plain", "sort3", "sort3_plain", "sort_geometry"]
@@ -146,7 +152,9 @@ def _launch(name: str, ks: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]
             scratch.data_ptr() if scratch is not None else None, rows, m, mp,
             *(g[1:] if g is not None else (0, 0, 0, 0)),
             torch.cuda.current_stream(k1.device).cuda_stream)
-    span = KERNEL_SPANS.begin(k1.device) if KERNEL_SPANS.enabled else None
+    # A launch inside a dispatch-count scope (a cost pass) takes no span.
+    span = (KERNEL_SPANS.begin(k1.device)
+            if KERNEL_SPANS.enabled and not gates_open() else None)
     check(_on_device(k1.device, fn, args), name)
     LAUNCHES[name] += 1
     SHAPE_LAUNCHES[(name, rows, m)] = SHAPE_LAUNCHES.get((name, rows, m), 0) + 1
@@ -165,6 +173,7 @@ def sort2(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     ``(INT32_MAX, INT32_MAX)`` pairs as it loads it, which sort last, and
     writes back only the real columns — exact under that payload contract.
     """
+    record_launch(("sort2", *k1.shape), lambda: cost.sort_cost(2, *k1.shape))
     if k1.device.type == "cpu":
         return sort2_plain(k1, k2)
     return _launch("sort2", (k1, k2))
@@ -189,6 +198,7 @@ def sort3(
     ``sort3``; ``lax.sort(num_keys=3)``).  Any int32 keys and any width:
     the kernel pads a row to the next power of two with ``INT32_MAX``
     triples, which sort last, and writes back only the real columns."""
+    record_launch(("sort3", *k1.shape), lambda: cost.sort_cost(3, *k1.shape))
     if k1.device.type == "cpu":
         return sort3_plain(k1, k2, k3)
     return _launch("sort3", (k1, k2, k3))

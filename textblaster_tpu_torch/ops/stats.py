@@ -27,9 +27,12 @@ the card: the affine scan behind every staged segmented polynomial hash
 (:func:`_poly_hash_many`) and the bitonic ``sort2`` behind every duplicate
 table (:func:`_sort_runs_many`).  The staged segmented add/or/max scans
 stay plain PyTorch, as they are lax scans in the JAX package.  The JAX
-package's two ``lax.cond`` gates (the n-gram rarity gate and the citation
-gate) and the pattern-candidate gate become host ``if``s: one
-device-to-host sync each per batch.
+package's three ``lax.cond`` gates (the n-gram rarity gate, the citation
+gate and the pattern-candidate gate) become host ``if``s: one
+device-to-host sync each per batch.  Inside a dispatch-count scope
+(:func:`~.scan.gates_open`: a cost pass on a zero batch) each takes its
+costly branch, as the JAX package's ``eval_shape`` traces both branches;
+on such a batch the branch gives what the closed gate gives.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ from .scan import (
     chain_scan_ok,
     fused_scan,
     fused_scan_ok,
+    gates_open,
 )
 from .sort import sort2
 
@@ -632,7 +636,7 @@ def _pattern_union_starts(
         h_end = _pad_cols(h_inc, n - 1, 0)
         cand = cand | ((h_end - h_exc * pw == target) & mask)
 
-    if not bool(cand.any()):
+    if not (gates_open() or bool(cand.any())):
         return torch.zeros_like(mask)
     hit = torch.zeros_like(mask)
     for pat in patterns:
@@ -1258,7 +1262,7 @@ def gopher_rep_stats(
 
     if dup_sizes:
         # The JAX package's lax.cond rarity gate, as one host sync.
-        if bool(dup_min_flags.any()):
+        if gates_open() or bool(dup_min_flags.any()):
             walk = [(min_dup, dup_min_rid, grams[min_dup][2], grams[min_dup][1])]
             rest = dup_sizes[1:]
             if rest:
@@ -1616,7 +1620,7 @@ def c4_stage(
             return torch.zeros_like(mask)
         # Citation machinery only runs on batches that contain a '[' at all
         # (the JAX package's lax.cond, as one host sync).
-        if not bool(((cps == ord("[")) & mask).any()):
+        if not (gates_open() or bool(((cps == ord("[")) & mask).any())):
             return torch.zeros_like(mask)
         return citation_spans(
             torch.where(unit_content, cps, 0).to(_I32),

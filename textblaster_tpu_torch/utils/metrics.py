@@ -36,9 +36,12 @@ Seams that count here in the port:
   the run report's ``latency`` section reads; the HTTP handler serves
   ``/telemetry``.
 
-The profiler is not ported yet: the report's ``device_profile`` section
-keeps the JAX package's keys and reads what the JAX package reads with the
-profiler off.
+* the profiler (``utils/profiler.py``): the
+  ``device_time_bucket_<L>_phase_<P>_seconds`` HDR families and the
+  ``device_achieved_bytes_per_s_bucket_*`` gauges, one a (bucket, phase),
+  which the run report's ``device_profile`` section reads beside the cost
+  model and the top-K table (with the profiler never armed, the section
+  has the JAX package's "off" shape).
 """
 
 from __future__ import annotations
@@ -1130,16 +1133,17 @@ def _device_profile_section(
     baseline: Optional[Dict[str, float]] = None,
     values: Optional[Dict[str, float]] = None,
 ) -> Dict[str, object]:
-    """The ``device_profile`` report section in the shape the JAX package
-    gives with its profiler off and no lockstep loop: no cost model, no
-    per-(bucket, phase) device-time family, no top-K table (the port has
-    no profiler yet)."""
-    return {
-        "cost_fingerprint": None,
-        "cost_model": {},
-        "dispatch": {},
-        "top_dispatches": [],
-    }
+    """The ``device_profile`` report section, built by utils/profiler.py.
+    Imported lazily (profiler.py imports this module at load time; the
+    reverse edge only exists inside a report build) and never allowed to
+    fail the report."""
+    try:
+        from .profiler import device_profile_report
+
+        return device_profile_report(baseline, values)
+    except Exception as e:  # noqa: BLE001 — observability must not kill a run
+        logger.warning("device_profile section skipped: %s", e)
+        return {}
 
 
 def build_run_report(
