@@ -141,7 +141,30 @@ Phases (any failure exits non-zero without the final result line):
    ``chain_scan`` with every call site's program on a corpus batch of each
    calibrated bucket at its rows (probe and generic programs at any shape
    left over).
-9. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
+9. C4BadWords on the device: ``affine_scan`` with k = 1 on the operands
+   ``ops/badwords.py`` gives it (``m`` 0 at column 0, 31 or 1,000,003 inside
+   the row, 1 past its end; lowered code points) at every default bucket
+   and calibrated width, on 1, 7, 64 and 65 rows and the calibrated batch
+   rows, aligned and on offset views, ``torch.equal`` to its plain version,
+   then timed at 1,000,003 on each bucket's geometry rows beside its bound.
+   Path (a): the JAX package's badwords benchmark config (``bench.py``'s
+   text, ``synth_badwords(515, n=400)`` as the ``en`` list in a cache dir)
+   over the whole corpus with ``bench.py``'s injection (about 5% of the
+   documents given a list entry, 0.5% ``" ſ"``), windowed, host tails off:
+   parity 1.0 against the host oracle, every default bucket dispatched,
+   exactly two ``affine_scan`` launches (k = 1) a batch and no other
+   launch, ``worker_fold_hazard_rows_total`` equal to the device rows
+   holding an ``en`` hazard code point, the funnel's drops all the
+   filter's and equal to the excluded rows; docs/s, the tables' distinct
+   lengths and ``max_dup``, the host routes, the device-busy share and the
+   peak device memory of one 64 x 65536 batch.  Path (b): the offline
+   pipeline with ``C4BadWordsFilter`` (``da``, keep 0.1, seeded) appended,
+   over the first 3,000 documents with about 5% given a ``da`` entry,
+   beside the offline pipeline alone over the same file: both at parity
+   1.0, the step on the device in phase 2, kept-by-fraction rows present,
+   every chain-run kernel launched and ``affine_scan`` with k = 1 at 512,
+   2048 and 8192.
+10. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
    uninterrupted ``cli.main`` run with ``--checkpoint-dir`` and
    ``--events-file``; ``run_checkpointed`` stopped after 2 chunks and
    resumed; the same under ``auto_geometry=True`` (a resume without the
@@ -152,7 +175,7 @@ Phases (any failure exits non-zero without the final result line):
    for row (the calibrated run's by id) and the non-checkpointed CLI
    run's by id, every column; one ``checkpoint_commit`` journal record a
    chunk; no checkpoint directory left.
-10. Fault phase: the degradation ladder, the breaker and the watchdog,
+11. Fault phase: the degradation ladder, the breaker and the watchdog,
    each run with zero backoff and a breaker threshold of 2 and held to a
    fault-free run of the same documents (kept and excluded rows equal by
    id, every column): over the first 1,000 documents a fault-free run
@@ -171,7 +194,9 @@ Phases (any failure exits non-zero without the final result line):
    a fatal ``ValueError`` that must propagate with no dispatch thread
    left.  Each run prints docs/s beside its fault-free run's, the ladder
    and watchdog counters and the launches at the split rows.
-11. Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+12. Output: a ``{"kernels": [...]}`` line (each kernel's launches on
+   the chain main path, and by path: chain, badwords (a), Danish badwords
+   (b)), the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -322,11 +347,29 @@ def read_set(path: str):
     return {(i, x, m) for i, x, m in zip(t["id"], t["text"], t["metadata"])}
 
 
+def load_config(spec=None):
+    """The pipeline config of ``spec``: the offline config's file when None,
+    else ``(yaml_text, badwords_cache_dir or None)``, the cache dir set as
+    every C4BadWordsFilter's ``cache_base_path`` (which YAML cannot set)."""
+    from pathlib import Path
+
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config, parse_pipeline_config
+
+    if spec is None:
+        return load_pipeline_config(CONFIG)
+    text, cache = spec
+    config = parse_pipeline_config(text)
+    for step in config.pipeline:
+        if step.type == "C4BadWordsFilter" and cache is not None:
+            step.params.cache_base_path = Path(cache)
+    return config
+
+
 def _host_shard(args):
-    """One worker of the host oracle: every ``n``-th row from ``k``, through
-    the port's host executor, into its own kept/excluded Parquet pair."""
-    inp, k, n, work = args
-    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    """One worker task of the host oracle: every ``n``-th row of ``inp``
+    from ``k``, through the port's host executor under the config of
+    ``spec``, into its own kept/excluded Parquet pair."""
+    tag, inp, k, n, work, spec = args
     from textblaster_tpu_torch.orchestration import (
         aggregate_results_from_stream,
         process_documents_host,
@@ -336,27 +379,36 @@ def _host_shard(args):
 
     docs = ParquetReader(ParquetInputConfig(inp, "text", "id")).read_documents()
     mine = (d for j, d in enumerate(docs) if j % n == k)
-    executor = build_pipeline_from_config(load_pipeline_config(CONFIG))
-    out = (os.path.join(work, f"host_kept.{k}.parquet"), os.path.join(work, f"host_excl.{k}.parquet"))
+    executor = build_pipeline_from_config(load_config(spec))
+    out = (os.path.join(work, f"host_kept.{tag}.{k}.parquet"),
+           os.path.join(work, f"host_excl.{tag}.{k}.parquet"))
     res = aggregate_results_from_stream(process_documents_host(executor, mine), *out)
-    return out, res.received
+    return tag, out, res.received
 
 
-def host_oracle(inp: str, work: str):
-    """The port's host oracle over the whole file, sharded over the CPU cores
-    (documents are independent; the outputs are compared as sets).  Every
-    worker process is joined before this returns."""
+def host_oracles(jobs, work: str):
+    """The port's host oracle over each ``(tag, inp, spec)`` of ``jobs``:
+    the whole file under the config of ``spec`` (:func:`load_config`),
+    sharded over the CPU cores (documents are independent; the outputs are
+    compared as sets), every job on one pool of worker processes.  Returns
+    ``{tag: (kept, excluded, received)}``; every worker process is joined
+    before this returns."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
     n = max(1, min(8, os.cpu_count() or 1))
-    kept, excl, received = set(), set(), 0
+    out = {tag: (set(), set(), 0) for tag, _, _ in jobs}
+    tasks = [(tag, inp, k, n, work, spec) for tag, inp, spec in jobs for k in range(n)]
     with ProcessPoolExecutor(n, mp_context=mp.get_context("spawn")) as pool:
-        for (k_path, e_path), got in pool.map(_host_shard, [(inp, k, n, work) for k in range(n)]):
-            kept |= read_set(k_path)
-            excl |= read_set(e_path)
-            received += got
-    return kept, excl, received
+        for tag, (k_path, e_path), got in pool.map(_host_shard, tasks):
+            kept, excl, received = out[tag]
+            out[tag] = (kept | read_set(k_path), excl | read_set(e_path), received + got)
+    return out
+
+
+def host_oracle(inp: str, work: str, spec=None):
+    """:func:`host_oracles` of one file: ``(kept, excluded, received)``."""
+    return host_oracles([("main", inp, spec)], work)["main"]
 
 
 # --- kernels ------------------------------------------------------------------
@@ -533,6 +585,17 @@ def generic_chain(full_range, packed_maps, shape, dev):
     ]
 
 
+def offset_view(t):
+    """The same values in a contiguous view 4 bytes past an aligned base:
+    the kernel takes its scalar loads and stores."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_sort2(rng, rows, width, dev) -> int:
     """``sort2`` against its plain version on seeded keys of ``[rows,
     width]`` (ties in the first key); fails on any difference, else returns
@@ -576,14 +639,6 @@ def kernel_phase(corpus):
     def max_err(got, want):
         return max((int((g.long() - w.long()).abs().max()) if g.numel() else 0
                     for g, w in zip(got, want)), default=0)
-
-    def offset_view(t):
-        # The same values in a contiguous view 4 bytes past an aligned base:
-        # the kernel takes its scalar loads and stores.
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
 
     errs = {"affine_scan": 0, "dfa_scan": 0, "sort2": 0}
     per_shape = []
@@ -2153,6 +2208,376 @@ def widest_bucket_peaks(config, geo, rows, device: str = "cuda"):
     return peaks
 
 
+# --- C4BadWords on the device --------------------------------------------------
+
+#: The JAX package's badwords benchmark config (bench.py:359-370), its list
+#: seed (bench.py:372) and its injection shares (bench.py:554-562).
+BADWORDS_CONFIG = """
+pipeline:
+  - type: C4BadWordsFilter
+    default_language: en
+    keep_fraction: 0.0
+    fail_on_missing_language: true
+"""
+BADWORDS_SEED = 515
+BADWORDS_HIT_SHARE, BADWORDS_HAZARD_SHARE = 0.05, 0.005
+#: Path (b): the step appended to the offline Danish pipeline, keeping a
+#: tenth of the matching documents (the draw is seeded per document, so the
+#: host oracle draws the same), over the first BADWORDS_SUBSET documents.
+DANISH_BADWORDS_STEP = """- type: C4BadWordsFilter
+  default_language: da
+  keep_fraction: 0.1
+  fail_on_missing_language: true
+  seed: 18
+"""
+BADWORDS_SUBSET = 3000
+#: The window-hash multipliers (ops/badwords.py: 31 and MUL2).
+BADWORDS_MULS = (31, 1000003)
+
+
+def inject_badwords(rows, words, seed, hazard_share, prefix=False):
+    """``rows`` with about 5% of the documents given one list entry after a
+    space (before the text and a space with ``prefix``) and about
+    ``hazard_share`` given ``" ſ"`` (a fold-hazard code point for every
+    Latin list), from a seeded generator, as bench.py does."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for doc_id, text in rows:
+        r = rng.random()
+        if r < BADWORDS_HIT_SHARE:
+            word = words[int(rng.integers(0, len(words)))]
+            text = f"{word} {text}" if prefix else f"{text} {word}"
+        elif r < BADWORDS_HIT_SHARE + hazard_share:
+            text += " ſ"
+        out.append((doc_id, text))
+    return out
+
+
+def badwords_operands(rng, corpus, rows, width, mul, dev):
+    """The operands ``_window_context`` gives the k = 1 ``affine_scan`` on a
+    ``[rows, width]`` batch of corpus documents: ``m`` is 0 at column 0,
+    ``mul`` inside the row, 1 past its end; the accumulator is the lowered
+    code points inside the row, 0 past it."""
+    import numpy as np
+    import torch
+
+    from textblaster_tpu_torch.ops.device import lowered
+
+    cps = np.zeros((rows, width), np.int32)
+    lengths = np.zeros(rows, np.int32)
+    for r in range(rows):
+        text = corpus[int(rng.integers(len(corpus)))][1]
+        arr = np.frombuffer(text.encode("utf-32-le"), dtype=np.uint32)[:width]
+        n = int(rng.integers(0, len(arr) + 1)) if r % 3 == 2 else len(arr)
+        cps[r, :n] = arr[:n]
+        lengths[r] = n
+    cps_t = torch.from_numpy(cps).to(dev)
+    pos = torch.arange(width, device=dev, dtype=torch.int32)[None, :]
+    mask = pos < torch.from_numpy(lengths).to(dev)[:, None]
+    m = torch.where(pos == 0, 0, torch.where(mask, mul, 1)).to(torch.int32).contiguous()
+    acc = torch.where(mask, lowered(cps_t), 0).to(torch.int32).contiguous()
+    return m, acc
+
+
+def badwords_kernels(corpus, geometry):
+    """The k = 1 ``affine_scan`` with the badwords operands at both
+    multipliers, at every default bucket and every calibrated width, on 1,
+    7, 64 and 65 rows and the calibrated batch rows, aligned and on offset
+    views, each ``torch.equal`` to its plain version; then its time at
+    ``MUL2`` at each default bucket's geometry rows beside its bound."""
+    import numpy as np
+    import torch
+
+    from textblaster_tpu_torch.ops import scan
+    from textblaster_tpu_torch.ops.cost import bound, scan_cost
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
+    from textblaster_tpu_torch.ops.pipeline import default_batch_size
+
+    rng = np.random.default_rng(SEED + 11)
+    dev = torch.device("cuda")
+    calibrated = dict(zip(geometry["geometry"]["buckets"], geometry["geometry"]["batch_sizes"]))
+    shapes = sorted({(r, w) for w in set(DEFAULT_BUCKETS) | set(calibrated)
+                     for r in (1, 7, 64, 65)} | {(r, w) for w, r in calibrated.items()})
+
+    checked = 0
+    for rows, width in shapes:
+        for mul in BADWORDS_MULS:
+            m, acc = badwords_operands(rng, corpus, rows, width, mul, dev)
+            for view_name, view in (("aligned", lambda t: t), ("offset", offset_view)):
+                mv, av = view(m), (view(acc),)
+                got = scan.affine_hash_scan(mv, av)
+                torch.cuda.synchronize()
+                want = scan.affine_hash_scan_plain(mv, av)
+                if not torch.equal(got[0], want[0]):
+                    fail(f"affine_scan (k = 1, badwords operands, m = {mul}) differs from its "
+                         f"plain version at {[rows, width]} ({view_name})")
+                checked += 1
+    timed = []
+    rows = default_batch_size(DEFAULT_BUCKETS, "cuda")
+    for width in DEFAULT_BUCKETS:
+        m, acc = badwords_operands(rng, corpus, rows, width, BADWORDS_MULS[1], dev)
+        accs = (acc,)
+        row = dict(kernel="affine_scan", variant=1, mul=BADWORDS_MULS[1], shape=[rows, width],
+                   ms=graph_ms(lambda: scan.affine_hash_scan(m, accs)),
+                   call_ms=cuda_ms(lambda: scan.affine_hash_scan(m, accs)),
+                   plain_ms=cuda_ms(lambda: scan.affine_hash_scan_plain(m, accs), 3),
+                   library_ms=None, **bound(*scan_cost("affine_scan", rows, width, 1)))
+        timed.append(row)
+        print(f"  badwords affine_scan/1 m={BADWORDS_MULS[1]} {str(row['shape']):14s} kernel "
+              f"{row['ms']:.4f} ms  call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+              f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    print(f"badwords kernels exact: affine_scan k = 1 with the badwords operands "
+          f"(m = {list(BADWORDS_MULS)}) at {shapes}, aligned and offset: {checked} checks",
+          flush=True)
+    return {"checked_shapes": [list(s) for s in shapes], "checks": checked, "timed": timed}
+
+
+def _bmp(text: str) -> bool:
+    """No supplementary-plane code point: the u16 wire's device rows."""
+    return not text or max(text) <= "\uffff"
+
+
+def _kept_statuses(path):
+    import pyarrow.parquet as pq
+
+    out = {}
+    for md in pq.read_table(path, columns=["metadata"]).column("metadata").to_pylist():
+        status = json.loads(md or "{}").get("c4_badwords_filter_status")
+        out[status] = out.get(status, 0) + 1
+    return out
+
+
+def badwords_batch_peak(pipe, rows):
+    """Peak device memory (MiB allocated) of one full batch of the 65536
+    bucket through the badwords program: the corpus documents longer than
+    32768 characters, packed to the bucket's geometry rows."""
+    import torch
+
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.packing import pack_documents
+
+    width = max(pipe.buckets)
+    n = pipe.geometry.batch_for(width)
+    docs = [TextDocument(id=i, source="chip_smoke", content=t) for i, t in rows
+            if 32768 < len(t) <= width and _bmp(t)][:n]
+    batch = pack_documents(docs, batch_size=n, max_len=width)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe.run_batch(batch, 0)
+    return {"bucket": width, "rows": n, "documents": len(docs),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def badwords_whole_corpus(rows, work, device: str = "cuda"):
+    """Path (a), its run: the JAX package's badwords benchmark config at
+    list scale (``synth_badwords(515, n=400)`` as the ``en`` list in a
+    cache dir) over the whole corpus with the benchmark's injection,
+    windowed, chain schedule, host tails off (so that the device decides
+    every document but the astral ones, and the fold-hazard count is
+    exact).  Returns the run, with its pipeline, input, config spec and
+    documents (checked by :func:`check_badwords_whole_corpus`)."""
+    from textblaster_tpu_torch.utils.metrics import METRICS
+    from textblaster_tpu_torch.utils.synthwords import synth_badwords
+
+    cache = os.path.join(work, "badwords_cache")
+    os.makedirs(cache, exist_ok=True)
+    words = synth_badwords(BADWORDS_SEED, n=400)
+    with open(os.path.join(cache, "en"), "w", encoding="utf-8") as f:
+        f.write("\n".join(words) + "\n")
+    spec = (BADWORDS_CONFIG, cache)
+    inj = inject_badwords(rows, words, SEED + 5, BADWORDS_HAZARD_SHARE)
+    inp = os.path.join(work, "corpus_badwords.parquet")
+    write_parquet(inp, inj)
+    held = {}
+
+    def prepare(pipe):
+        held["pipe"] = pipe
+
+    os.environ["TEXTBLAST_HOST_TAILS"] = "off"
+    try:
+        hz0 = METRICS.get("worker_fold_hazard_rows_total")
+        run = device_run(load_config(spec), inp, work, "badwords", device, prepare=prepare)
+        run["fold_hazard_rows"] = int(METRICS.get("worker_fold_hazard_rows_total") - hz0)
+    finally:
+        del os.environ["TEXTBLAST_HOST_TAILS"]
+    run.update(pipe=held["pipe"], input=inp, spec=spec, documents=inj)
+    return run
+
+
+def check_badwords_whole_corpus(run, oracle, device: str = "cuda"):
+    """Path (a) held to the host oracle (parity 1.0); every default bucket
+    dispatched; ``affine_scan`` (k = 1) launched exactly twice a batch and
+    nothing else; ``worker_fold_hazard_rows_total`` equal to the device
+    rows holding an ``en`` hazard code point; the funnel's drops equal to
+    the excluded rows, all the filter's.  Returns the path's summary."""
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
+
+    pipe = run["pipe"]
+    host_kept, host_excl, host_received = oracle
+    run["decision_parity"], equal = _parity(run, host_kept, host_excl)
+    if run["decision_parity"] != 1.0 or not equal or run["received"] != host_received:
+        fail(f"the badwords run and the host oracle differ (parity {run['decision_parity']})")
+    check_report(run)
+    missing = [b for b in DEFAULT_BUCKETS if run["batches_by_bucket"].get(str(b), 0) == 0]
+    if missing:
+        fail(f"the badwords run never dispatched buckets {missing}")
+    n_batches = sum(run["batches_by_bucket"].values())
+    others = {k: v for k, v in run["launches"].items() if k != "affine_scan" and v}
+    if device == "cuda" and (run["launches"]["affine_scan"] != 2 * n_batches or others):
+        fail(f"the badwords run launched {run['launches']} over {n_batches} batches "
+             "(two affine_scan launches a batch, nothing else)")
+    if any(k[0] != "affine_scan" or k[3] != 1 for k, _ in run["shape_launches"]):
+        fail(f"the badwords run launched {run['shape_launches']} (k = 1 only)")
+    tables = pipe._badwords_device_tables[0]
+    hazard_chars = {chr(c) for c in tables["en"].hazard_cps}
+    want_hazard = sum(1 for _, t in run["documents"] if _bmp(t) and hazard_chars & set(t))
+    fold_rows = run["fold_hazard_rows"]
+    if fold_rows != want_hazard or fold_rows == 0:
+        fail(f"worker_fold_hazard_rows_total {fold_rows}, rows with an en hazard code point "
+             f"{want_hazard}")
+    funnel = run["report"]["funnel"]["per_filter_dropped"]
+    if funnel != ({"C4BadWordsFilter": run["excluded"]} if run["excluded"] else {}):
+        fail(f"the badwords run's funnel {funnel}, {run['excluded']} excluded rows")
+    peak = badwords_batch_peak(pipe, run["documents"]) if device == "cuda" else None
+    summary = {
+        "documents": run["received"], "docs_per_s": run["device_docs_per_s"],
+        "seconds": run["device_seconds"], "parity": run["decision_parity"],
+        "kept": run["kept"], "excluded": run["excluded"],
+        "tables": {lang: {"entries": int(sum(len(t) for t in tb.tables1)),
+                          "distinct_lengths": len(tb.lengths), "max_dup": tb.max_dup,
+                          "hazard_cps": [hex(c) for c in tb.hazard_cps]}
+                   for lang, tb in sorted(tables.items())},
+        "fold_hazard_rows": fold_rows, "host_routes": run["host_routes"],
+        "device_busy_share": run["device_busy_share"], "batches": n_batches,
+        "batches_by_bucket": run["batches_by_bucket"], "launches": run["launches"],
+        "shape_launches": run["shape_launches"], "peak_batch": peak,
+        "peak_device_mib": run["peak_device_mib"],
+        "stage_seconds": {k: v for k, v in run["seconds"].items() if k != "device"},
+        "device_seconds_by_phase": run["seconds"]["device"],
+    }
+    print(f"badwords (a): {run['received']} documents, {run['device_docs_per_s']:.2f} docs/s "
+          f"({run['device_seconds']:.2f} s), parity {run['decision_parity']}, kept "
+          f"{run['kept']} / excluded {run['excluded']}, tables "
+          f"{json.dumps(summary['tables'])}, fold-hazard rows {fold_rows}, host routes "
+          f"{json.dumps(run['host_routes'])}, device-busy share "
+          f"{run['device_busy_share']:.4f}, {n_batches} batches "
+          f"{json.dumps(run['batches_by_bucket'])}, launches {run['launches']}, peak device "
+          f"memory of one batch {json.dumps(peak)}", flush=True)
+    return summary
+
+
+def badwords_in_main_pipeline(rows, work, device: str = "cuda"):
+    """Path (b), its runs: the offline Danish pipeline with
+    ``DANISH_BADWORDS_STEP`` appended (built in memory), over the first
+    ``BADWORDS_SUBSET`` documents with about 5% given an entry of the
+    vendored ``da`` list, windowed, chain schedule; then the offline
+    pipeline alone over the same file.  Returns both runs, the first with
+    its pipeline, input and config spec."""
+    from textblaster_tpu_torch.filters.c4_badwords import load_local_badwords
+
+    with open(CONFIG, encoding="utf-8") as f:
+        spec = (f.read() + DANISH_BADWORDS_STEP, None)
+    # Entries go before the text: C4's rewrite drops a last line without
+    # terminal punctuation, so an entry appended after it never reaches
+    # the step.
+    inj = inject_badwords(rows[:BADWORDS_SUBSET], load_local_badwords("da"), SEED + 6, 0.0,
+                          prefix=True)
+    inp = os.path.join(work, "corpus_badwords_da.parquet")
+    write_parquet(inp, inj)
+    held = {}
+
+    def prepare(pipe):
+        held["pipe"] = pipe
+
+    runs = {"badwords": device_run(load_config(spec), inp, work, "badwords_da", device,
+                                   prepare=prepare),
+            "plain": device_run(load_config(), inp, work, "badwords_da_plain", device)}
+    runs["badwords"].update(pipe=held["pipe"], input=inp, spec=spec)
+    return runs
+
+
+def check_badwords_in_main_pipeline(runs, oracles, device: str = "cuda"):
+    """Path (b) held to the host oracle under both configs (parity 1.0);
+    the step on the device in phase 2; kept-by-fraction rows present;
+    every kernel of the chain run launched, and ``affine_scan`` with
+    k = 1 at 512, 2048 and 8192.  Returns the path's summary."""
+    pipe = runs["badwords"]["pipe"]
+    where = [i for i, ph in enumerate(pipe.phases) for j in ph
+             if pipe.device_steps[j].type == "C4BadWordsFilter"]
+    if where != [2] or pipe.host_steps or pipe.fully_host:
+        fail(f"the Danish badwords step was placed in phases {where}, host steps "
+             f"{[s.type for s in pipe.host_steps]}")
+    for tag, run in runs.items():
+        kept, excl, received = oracles[tag]
+        run["decision_parity"], equal = _parity(run, kept, excl)
+        if run["decision_parity"] != 1.0 or not equal or run["received"] != received:
+            fail(f"the Danish {tag} run and the host oracle differ "
+                 f"(parity {run['decision_parity']})")
+        check_report(run)
+        for k in ("chain_scan", "fused_scan", "affine_scan", "dfa_scan", "sort2"):
+            if device == "cuda" and run["launches"][k] <= 0:
+                fail(f"kernel {k} was never launched on the Danish {tag} run")
+    statuses = _kept_statuses(runs["badwords"]["outputs"][0])
+    if not statuses.get("passed_kept_by_fraction"):
+        fail(f"the Danish badwords run kept no document by fraction: {statuses}")
+    k1 = {(k[2]) for k, _ in runs["badwords"]["shape_launches"]
+          if k[0] == "affine_scan" and k[3] == 1}
+    if device == "cuda" and not {512, 2048, 8192} <= k1:
+        fail(f"the Danish badwords run launched affine_scan with k = 1 at {sorted(k1)}")
+    dropped = runs["badwords"]["report"]["funnel"]["per_filter_dropped"]
+    summary = {
+        "documents": runs["badwords"]["received"],
+        "docs_per_s": runs["badwords"]["device_docs_per_s"],
+        "plain_docs_per_s": runs["plain"]["device_docs_per_s"],
+        "seconds": runs["badwords"]["device_seconds"],
+        "plain_seconds": runs["plain"]["device_seconds"],
+        "parity": runs["badwords"]["decision_parity"],
+        "plain_parity": runs["plain"]["decision_parity"],
+        "kept_statuses": statuses, "funnel": dropped,
+        "phases": pipe.phases, "affine_k1_widths": sorted(k1),
+        "launches": runs["badwords"]["launches"], "plain_launches": runs["plain"]["launches"],
+        "host_routes": runs["badwords"]["host_routes"],
+        "device_busy_share": runs["badwords"]["device_busy_share"],
+        "device_seconds_by_phase": runs["badwords"]["seconds"]["device"],
+        "plain_device_seconds_by_phase": runs["plain"]["seconds"]["device"],
+    }
+    print(f"badwords (b): {summary['documents']} documents of the offline Danish pipeline + "
+          f"C4BadWordsFilter(da, keep 0.1): {summary['docs_per_s']:.2f} docs/s "
+          f"({summary['seconds']:.2f} s) against {summary['plain_docs_per_s']:.2f} docs/s "
+          f"({summary['plain_seconds']:.2f} s) without the step, parity {summary['parity']} / "
+          f"{summary['plain_parity']}, phases {pipe.phases}, kept statuses "
+          f"{json.dumps(statuses)}, funnel {json.dumps(dropped)}, affine_scan k = 1 at "
+          f"{sorted(k1)}, device seconds by phase "
+          f"{json.dumps(summary['device_seconds_by_phase'])} (without: "
+          f"{json.dumps(summary['plain_device_seconds_by_phase'])}), launches "
+          f"{summary['launches']} (without: {summary['plain_launches']})", flush=True)
+    return summary
+
+
+def badwords_phase(rows, work, geometry, device: str = "cuda"):
+    """The C4BadWords slice: its kernel checks and timings (on ``cuda``),
+    the runs of paths (a) and (b), one host-oracle pool for the three
+    files' configs, then each path's checks.  Returns the phase's
+    summary."""
+    t0 = time.perf_counter()
+    kernels = badwords_kernels(rows, geometry) if device == "cuda" else None
+    whole = badwords_whole_corpus(rows, work, device)
+    danish = badwords_in_main_pipeline(rows, work, device)
+    t1 = time.perf_counter()
+    oracles = host_oracles([("whole", whole["input"], whole["spec"]),
+                            ("badwords", danish["badwords"]["input"], danish["badwords"]["spec"]),
+                            ("plain", danish["badwords"]["input"], None)], work)
+    host_s = time.perf_counter() - t1
+    whole_summary = check_badwords_whole_corpus(whole, oracles.pop("whole"), device)
+    danish_summary = check_badwords_in_main_pipeline(danish, oracles, device)
+    seconds = time.perf_counter() - t0
+    print(f"badwords phase: {seconds:.1f} s (host oracles {host_s:.1f} s)", flush=True)
+    return {"kernels": kernels, "whole_corpus": whole_summary, "danish": danish_summary,
+            "host_oracle_seconds": host_s, "seconds": seconds}
+
+
 def _journal_commits(path):
     with open(path) as f:
         return [json.loads(line) for line in f if '"checkpoint_commit"' in line]
@@ -2710,6 +3135,7 @@ def main() -> int:
                                  if isinstance(run, dict) and "shape_launches" in run))
     geometry, known_keys = auto_geometry_phase(rows, work, oracle, default_keys)
     print(f"auto-geometry phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    badwords = badwords_phase(rows, work, geometry)
     checkpoint = checkpoint_phase(rows, work, cli_run, known_keys)
     t0 = time.perf_counter()
     faults = fault_phase(rows, work, checked)
@@ -2733,6 +3159,11 @@ def main() -> int:
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
             "launches": summary["chain"]["launches"][k], "max_abs_err": errs[k],
+            # Each path's own run: the chain main path, badwords path (a)
+            # over the whole corpus and path (b) in the Danish pipeline.
+            "launches_by_path": {"chain": summary["chain"]["launches"][k],
+                                 "badwords": badwords["whole_corpus"]["launches"][k],
+                                 "danish_badwords": badwords["danish"]["launches"][k]},
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -2745,7 +3176,7 @@ def main() -> int:
                    "cuda": torch.version.cuda, "kernels": kernels,
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
                    "main_path": summary, "profile": profiled, "cli": cli_run,
-                   "auto_geometry": geometry,
+                   "auto_geometry": geometry, "badwords": badwords,
                    "checkpoint": checkpoint, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

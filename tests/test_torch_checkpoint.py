@@ -395,6 +395,18 @@ def test_deadletter_checkpointed_crash_resume_no_dupes(tmp_path, monkeypatch, ba
 
     monkeypatch.setattr(C4BadWordsFilter, "process", process)
     config = parse_pipeline_config(BADWORDS_YAML)
+    if backend == "device":
+        # A default language with a local list puts the step on the device,
+        # where a crash of its host filter propagates (the JAX package's
+        # device path).  One without a list keeps the step on the host, as
+        # the JAX package places it; there a step's crash is an Error
+        # outcome, the path this branch holds to the dead-letter file.
+        # Every row names its language, so the default is never read.
+        config.pipeline[0].params.default_language = "sv"
+        from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+
+        placed = CompiledPipeline(config, device=device)
+        assert not placed.device_steps and len(placed.host_steps) == 1
     inp = str(tmp_path / "in.parquet")
     _write_input(inp, n=40, languages=("en", "en", "en", "xx"))
     out = _paths(tmp_path, "o")

@@ -38,8 +38,18 @@ its documents on the host oracle, and a circuit breaker sends the run to
 the host oracle after ``breaker_threshold`` batches in a row fell that far.
 Every re-attempt runs on the dispatch thread, so launches stay on one
 thread and one stream.  A fatal error (a deterministic one, or a sticky
-CUDA error) propagates.  Not ported yet: C4BadWords on the device (it runs
-as a host step), meshes and warmup.
+CUDA error) propagates.  Not ported yet: meshes and warmup.
+
+C4BadWordsFilter runs on the device wherever the JAX package runs it there
+(:func:`_step_on_device`): its default language has a local word list that
+compiles to device tables (:mod:`.badwords`), and so does every other
+language with a local list.  Its program decides every row by the double
+window hash over two ``affine_scan`` launches; the host regex re-decides
+only the fold-hazard rows (counted in ``worker_fold_hazard_rows_total``)
+and the documents of languages without tables, and a matching row draws
+the seeded keep fraction on the host.  A default language without a list
+keeps the step on the host: as a suffix when it is last, or the whole
+pipeline when device steps follow it.
 
 The JAX package's metric seams count into the port's registry
 (:mod:`..utils.metrics`) under the same names: occupancy per dispatch
@@ -83,6 +93,7 @@ import traceback
 from collections import deque
 from contextlib import nullcontext
 from concurrent.futures import Future
+from functools import lru_cache
 from itertools import islice
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -109,6 +120,7 @@ from ..utils.overlap import prefetch_iter, shared_pack_pool
 from ..utils.profiler import PROFILER, program_key
 from ..utils.telemetry import TELEMETRY
 from ..utils.trace import KERNEL_SPANS, TRACER, DeviceClock
+from .badwords import badwords_matches_multi
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
 from . import scan, sort
@@ -139,16 +151,19 @@ __all__ = [
     "resolve_device",
 ]
 
-#: Step types with a device implementation in this slice.  C4BadWordsFilter
-#: is not ported yet: where it appears it runs on the host (as a suffix, or
-#: the whole pipeline falls back to the host when it precedes device steps).
+#: Step types with a device implementation.  C4BadWordsFilter is on the
+#: device only where its default language has local tables
+#: (:func:`_step_on_device`).
 _DEVICE_STEPS = {
     "LanguageDetectionFilter",
     "GopherRepetitionFilter",
     "GopherQualityFilter",
     "C4QualityFilter",
     "FineWebQualityFilter",
+    "C4BadWordsFilter",
 }
+
+_CJK_BADWORDS_LANGS = ("ja", "th", "zh")  # c4_filters.rs:70
 
 # Step types that cheaply kill many documents: a phase boundary after them
 # lets the runner repack survivors and skip the expensive downstream work
@@ -175,6 +190,77 @@ _BREAKER_OPEN = object()
 #: Rows the split rung rounds each half up to (the JAX package's sublane
 #: tile, ``pallas_sort.ROWS``), so both halves share one shape.
 _SPLIT_ROW_TILE = 8
+
+
+@lru_cache(maxsize=64)
+def _badwords_tables_cached(default_language: str, cache_base_path, stat_key):
+    from ..filters.c4_badwords import load_local_badwords
+    from .badwords import BadwordTables
+
+    words = load_local_badwords(default_language, cache_base_path)
+    if not words:
+        # Unavailable or empty: the host filter owns the semantics
+        # (download, passed_no_regex, fail_on_missing_language).
+        return None
+    return BadwordTables.build(
+        words, check_boundaries=default_language not in _CJK_BADWORDS_LANGS
+    )
+
+
+def _badwords_list_stat(default_language: str, cache_base_path):
+    """(mtime_ns, size) of the on-disk list, or None when absent: part of
+    the cache key, so that a list that appears or changes during a
+    long-lived process is seen instead of a stale table (or a stale
+    None)."""
+    from ..filters.c4_badwords import local_badwords_path
+
+    path = local_badwords_path(default_language, cache_base_path)
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (st.st_mtime_ns, st.st_size)
+
+
+def _badwords_tables(step: StepConfig):
+    """BadwordTables for the step's default language from local lists only,
+    or None (-> host execution).  Cached per (language, cache path, file
+    stat)."""
+    p = step.params
+    stat_key = _badwords_list_stat(p.default_language, p.cache_base_path)
+    return _badwords_tables_cached(p.default_language, p.cache_base_path, stat_key)
+
+
+def _badwords_all_tables(step: StepConfig) -> Dict[str, object]:
+    """Tables for every language with a local list (vendored or in the cache
+    dir): one device pass decides the documents of all these languages, not
+    only the default's.  Languages without local lists keep the host
+    semantics (download / passed_no_regex / fail_on_missing_language)."""
+    from ..filters.c4_badwords import BADWORDS_LANGS
+
+    p = step.params
+    out: Dict[str, object] = {}
+    for lang in BADWORDS_LANGS:
+        stat_key = _badwords_list_stat(lang, p.cache_base_path)
+        if stat_key is None:
+            continue
+        tables = _badwords_tables_cached(lang, p.cache_base_path, stat_key)
+        if tables is not None:
+            out[lang] = tables
+    return out
+
+
+def _step_on_device_base(step: StepConfig) -> bool:
+    """Device eligibility from the config alone (no file consulted)."""
+    return step.type in _DEVICE_STEPS
+
+
+def _step_on_device(step: StepConfig) -> bool:
+    if not _step_on_device_base(step):
+        return False
+    if step.type == "C4BadWordsFilter" and _badwords_tables(step) is None:
+        return False
+    return True
 
 
 def _drop_frames(exc: Optional[BaseException]) -> None:
@@ -295,6 +381,9 @@ class _StepEval:
         "c4_line_keep",
         "c4_n_lines",
         "c4_rewrite_identity",
+        "badwords_matches",
+        "badwords_default_language",
+        "badwords_fold_hazard",
     )
 
     def __init__(self, passed, decide, pass_stamps, overflow=None):
@@ -308,6 +397,9 @@ class _StepEval:
         self.c4_line_keep = None
         self.c4_n_lines = None
         self.c4_rewrite_identity = None
+        self.badwords_matches = None
+        self.badwords_default_language = None
+        self.badwords_fold_hazard = None
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -386,14 +478,23 @@ class CompiledPipeline:
 
         steps = list(config.pipeline)
         n_device = 0
+        # Badwords tables are resolved once here and carried on the
+        # instance: _build_fn may run much later (the first batch of a new
+        # bucket), when the on-disk list may have changed or vanished; the
+        # program uses exactly the tables this placement saw.
+        self._badwords_device_tables: Dict[int, object] = {}
         for s in steps:
-            if s.type not in _DEVICE_STEPS:
+            if s.type == "C4BadWordsFilter" and _step_on_device_base(s):
+                if _badwords_tables(s) is None:  # default language must exist
+                    break
+                self._badwords_device_tables[n_device] = _badwords_all_tables(s)
+            elif not _step_on_device(s):
                 break
             n_device += 1
         self.device_steps = steps[:n_device]
         self.host_steps = steps[n_device:]
-        # Host-only fallback when un-ported steps precede device steps.
-        self.fully_host = any(s.type in _DEVICE_STEPS for s in self.host_steps)
+        # Host-only fallback when host steps precede device-capable steps.
+        self.fully_host = any(_step_on_device(s) for s in self.host_steps)
 
         # Documents containing dictionary-segmented scripts (Han/kana/Thai…)
         # are decided by the host oracle whenever a word-table step runs on
@@ -435,6 +536,7 @@ class CompiledPipeline:
 
         self._host_executor = None
         self._host_suffix_executor = None
+        self._badwords_steps: Dict[int, object] = {}
         self._fns: Dict[Tuple[int, int], Callable] = {}
         self.counters = _new_counters()
         self._pack_lock = threading.Lock()
@@ -451,6 +553,17 @@ class CompiledPipeline:
 
             for name in SOURCES:
                 load(name)
+
+    def _badwords_host_step(self, idx: int):
+        """The host C4BadWordsFilter of device step ``idx``: it decides only
+        fold-hazard rows and uncompiled languages, and draws the keep
+        fraction of matching rows (one regex cache and seed across
+        documents)."""
+        if idx not in self._badwords_steps:
+            from ..pipeline_builder import build_step
+
+            self._badwords_steps[idx] = build_step(self.device_steps[idx])
+        return self._badwords_steps[idx]
 
     # --- host executors -----------------------------------------------------
 
@@ -527,6 +640,8 @@ class CompiledPipeline:
                     else tuple(sorted(DEFAULT_STOP_CHARS))
                 )
                 plans.append(("fineweb", i, (stop_chars, p.short_line_length)))
+            elif step.type == "C4BadWordsFilter":
+                plans.append(("badwords", i, self._badwords_device_tables[i]))
 
         # Unit hashes are consumed only by the Gopher steps.
         needs_hashes = any(kind in ("gopher_quality", "gopher_rep") for kind, _, _ in plans)
@@ -570,6 +685,15 @@ class CompiledPipeline:
                     fw = fineweb_stats(get_structure(), stop_chars, max_lines, short_len)
                     for k, v in fw.items():
                         out[f"{i}:{k}"] = v
+                elif kind == "badwords":
+                    # The batch as the earlier steps left it (after c4: the
+                    # rewritten code points and lengths).
+                    per_lang, per_hazard = badwords_matches_multi(
+                        state["cps"], state["lengths"], arg
+                    )
+                    for lang, m in per_lang.items():
+                        out[f"{i}:match:{lang}"] = m
+                        out[f"{i}:hazard:{lang}"] = per_hazard[lang]
             return out
 
         return fn
@@ -1443,6 +1567,57 @@ class CompiledPipeline:
 
         return _StepEval(passed=passed, overflow=overflow, decide=decide, pass_stamps=())
 
+    def _eval_badwords(self, step: StepConfig, idx: int, stats) -> "_StepEval":
+        p = step.params
+        langs = self._badwords_device_tables.get(idx, {})
+        matches = {lang: np.asarray(stats[f"{idx}:match:{lang}"], dtype=bool) for lang in langs}
+        hazards = {lang: np.asarray(stats[f"{idx}:hazard:{lang}"], dtype=bool) for lang in langs}
+
+        def decide(row: int, doc: TextDocument) -> _Decision:
+            # The device delivers the regex verdict for every language with
+            # tables (ops/badwords.py: a spurious match needs a double
+            # 32-bit collision).  Matching documents only draw the keep
+            # fraction here, seeded per document (hash of seed and id), so
+            # independent of batch order; documents of languages without
+            # tables run the whole host filter (download / passed_no_regex
+            # / fail_on_missing_language, c4_filters.rs:456-552).
+            from ..errors import DocumentFiltered
+
+            host_step = self._badwords_host_step(idx)
+            doc_lang = doc.metadata.get("language", p.default_language)
+            m = matches.get(doc_lang)
+            if m is not None and hazards[doc_lang][row]:
+                # A host regex re-decision of a fold-hazard row: host work,
+                # counted under its own name.
+                METRICS.inc("worker_fold_hazard_rows_total")
+            if m is None or hazards[doc_lang][row]:
+                # No tables for the language, or the row holds a code point
+                # whose IGNORECASE folding this language's table cannot
+                # express: the host regex decides.
+                try:
+                    host_step.process(doc)  # stamps metadata itself
+                except DocumentFiltered as e:
+                    return _Decision(False, e.reason)
+                return _Decision(True)
+            if not m[row]:
+                doc.metadata["c4_badwords_filter_status"] = "passed"
+                return _Decision(True)
+            if p.keep_fraction > 0.0 and host_step._keep_draw(doc.id) < p.keep_fraction:
+                doc.metadata["c4_badwords_filter_status"] = "passed_kept_by_fraction"
+                return _Decision(True)
+            reason = "document_removed_with_badwords"
+            doc.metadata["c4_badwords_filter_status"] = "filtered"
+            doc.metadata["c4_badwords_filter_reason"] = reason
+            return _Decision(False, reason)
+
+        # No batch verdict: the document's language is known per row, so
+        # _assemble_row's badwords branch decides before ev.passed is read.
+        ev = _StepEval(passed=None, decide=decide, pass_stamps=None)
+        ev.badwords_matches = matches
+        ev.badwords_default_language = p.default_language
+        ev.badwords_fold_hazard = hazards
+        return ev
+
     # --- batch processing ---------------------------------------------------
 
     def _rewrite_c4(self, doc: TextDocument, step: StepConfig, keep_mask) -> None:
@@ -1492,9 +1667,14 @@ class CompiledPipeline:
         last = phase == len(self.phases) - 1
         outcomes: List[ProcessingOutcome] = []
         survivors: List[TextDocument] = []
-        # Rows that pass the whole phase only take metadata pass-stamps.
+        # Rows that pass the whole phase only take metadata pass-stamps.  A
+        # step without a batch verdict (badwords: the document's language
+        # is known per row) sends every row down the per-row path.
         fast_mask = ~overflow_any
         for _, ev in evals:
+            if ev.passed is None:
+                fast_mask[:] = False
+                break
             fast_mask &= ev.passed[:n_rows]
             if ev.c4_line_keep is not None:
                 fast_mask &= ev.c4_rewrite_identity[:n_rows]
@@ -1532,11 +1712,23 @@ class CompiledPipeline:
             return execute_processing_pipeline(self.host_suffix_executor, doc)
         return ProcessingOutcome.success(doc)
 
+    _BADWORDS_PASS_STAMPS = (("c4_badwords_filter_status", "passed"),)
+
     def _assemble_row(self, evals, row: int, doc: TextDocument) -> Optional[ProcessingOutcome]:
         """Walk one row through this phase's steps; ``None`` means it passed
         them all (the caller decides success vs next-phase survival)."""
         for step, ev in evals:
-            if ev.passed[row] and ev.pass_stamps is not None:
+            if ev.badwords_matches is not None:
+                # Fast path for a non-matching, hazard-free row of a language
+                # with tables (the common case: no host work); matches and
+                # languages without tables go through decide().
+                doc_lang = doc.metadata.get("language", ev.badwords_default_language)
+                m = ev.badwords_matches.get(doc_lang)
+                if m is not None and not m[row] and not ev.badwords_fold_hazard[doc_lang][row]:
+                    for k, v in self._BADWORDS_PASS_STAMPS:
+                        doc.metadata[k] = v
+                    continue
+            elif ev.passed[row] and ev.pass_stamps is not None:
                 for k, v in ev.pass_stamps:
                     doc.metadata[k] = v
                 if ev.c4_line_keep is not None and not ev.c4_rewrite_identity[row]:
@@ -1924,6 +2116,7 @@ _EVALS = {
     "GopherQualityFilter": CompiledPipeline._eval_gopher_quality,
     "C4QualityFilter": CompiledPipeline._eval_c4,
     "FineWebQualityFilter": CompiledPipeline._eval_fineweb,
+    "C4BadWordsFilter": CompiledPipeline._eval_badwords,
 }
 
 
