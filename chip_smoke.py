@@ -48,7 +48,7 @@ Phases (any failure exits non-zero without the final result line):
    ``configs/pipeline_config_offline.yaml``: under the chain schedule (the
    default) over the whole corpus, windowed (the default: reader thread,
    pack pool, a dispatch thread on its own CUDA stream with two batches in
-   flight, writer threads); over its first 3,000 documents, windowed,
+   flight, writer threads); over its first 2,000 documents, windowed,
    under the fused schedule (``TEXTBLAST_DEPFUSE=off``), the staged one
    (``TEXTBLAST_FUSED=off``) and the chain schedule with
    ``TEXTBLAST_HOST_TAILS=off``, then the last serially
@@ -149,7 +149,7 @@ Phases (any failure exits non-zero without the final result line):
    then timed at 1,000,003 on each bucket's geometry rows beside its bound.
    Path (a): the JAX package's badwords benchmark config (``bench.py``'s
    text, ``synth_badwords(515, n=400)`` as the ``en`` list in a cache dir)
-   over the whole corpus with ``bench.py``'s injection (about 5% of the
+   over the first 10,000 documents with ``bench.py``'s injection (about 5% of the
    documents given a list entry, 0.5% ``" ſ"``), windowed, host tails off:
    parity 1.0 against the host oracle, every default bucket dispatched,
    exactly two ``affine_scan`` launches (k = 1) a batch and no other
@@ -164,7 +164,26 @@ Phases (any failure exits non-zero without the final result line):
    1.0, the step on the device in phase 2, kept-by-fraction rows present,
    every chain-run kernel launched and ``affine_scan`` with k = 1 at 512,
    2048 and 8192.
-10. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
+10. The native host core (``textblaster_tpu_torch/native``, built with
+   ``g++`` before the main path, which already runs its host routes on
+   it): the build seconds, ``available()`` (must be True) and the host
+   CPU (``lscpu``); on one pool of worker processes, before any run, the
+   core against the numpy paths on this host over the first 2,000
+   documents and every CJK and astral one (word spans, the offline
+   config's top 2-4 and dup 5-10 n-gram scans, duplicate lines and
+   paragraphs) and ``utf8_lengths`` / ``pack_utf8`` at every default
+   bucket over the corpus Parquet's Arrow buffers, every result equal,
+   beside the token-counting run's host oracle;
+   the chain schedule, windowed, over the first 2,000 documents with the
+   core on and then off (``native.disabled()``): parity 1.0 both, kept
+   and excluded files byte-identical, the core's calls above 0 and 0,
+   docs/s, host-route and tail seconds each; then
+   ``configs/pipeline_config.yaml`` with TokenCounter on a ``merges.txt``
+   written from the vendored stand-in's merges, on the card over the
+   first 2,000 documents: equal to the host oracle under the same spec
+   row for row, ``token_count`` on every kept row, one BPE call a kept
+   row.
+11. Checkpoint/resume over the CLI run's 2,000 documents, 500 a chunk: an
    uninterrupted ``cli.main`` run with ``--checkpoint-dir`` and
    ``--events-file``; ``run_checkpointed`` stopped after 2 chunks and
    resumed; the same under ``auto_geometry=True`` (a resume without the
@@ -175,7 +194,7 @@ Phases (any failure exits non-zero without the final result line):
    for row (the calibrated run's by id) and the non-checkpointed CLI
    run's by id, every column; one ``checkpoint_commit`` journal record a
    chunk; no checkpoint directory left.
-11. Fault phase: the degradation ladder, the breaker and the watchdog,
+12. Fault phase: the degradation ladder, the breaker and the watchdog,
    each run with zero backoff and a breaker threshold of 2 and held to a
    fault-free run of the same documents (kept and excluded rows equal by
    id, every column): over the first 1,000 documents a fault-free run
@@ -186,15 +205,15 @@ Phases (any failure exits non-zero without the final result line):
    not must have been held to its plain version); over the first 500 an
    outage (every dispatch fails: every document on the host rung, the
    breaker trips once); over the first 1,000 at depth 3 an injected hang
-   twice under a 0.5 s stage deadline; over the documents longer than
-   32,768 characters (only the 65536 bucket) a real out-of-memory run, the
+   twice under a 0.5 s stage deadline; over the first 192 documents longer
+   than 32,768 characters (only the 65536 bucket) a real out-of-memory run, the
    allocator capped before each batch between the half batch's and the
    full batch's peak of its phase (measured in two pilot runs), where
    every full batch must split and no document reach the host rung; and
    a fatal ``ValueError`` that must propagate with no dispatch thread
    left.  Each run prints docs/s beside its fault-free run's, the ladder
    and watchdog counters and the launches at the split rows.
-12. Output: a ``{"kernels": [...]}`` line (each kernel's launches on
+13. Output: a ``{"kernels": [...]}`` line (each kernel's launches on
    the chain main path, and by path: chain, badwords (a), Danish badwords
    (b)), the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
@@ -216,9 +235,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pipeline_config_offline.yaml")
 N_DOCS = int(os.environ.get("CHIP_SMOKE_DOCS", "20000"))
-#: The documents of the runs over a subset: 3,000, so that the
-#: auto-geometry and checkpoint phases fit the script's time.
-STAGED_SUBSET = 3000
+#: The documents of the runs over a subset: 2,000 (3,000 until the native
+#: phase came), so that the later phases fit the script's time.
+STAGED_SUBSET = 2000
 #: The auto-geometry phase's documents: the first GEOMETRY_DOCS.
 GEOMETRY_DOCS = 5000
 #: Windowed runs over the first STAGED_SUBSET documents: the fused and the
@@ -386,23 +405,31 @@ def _host_shard(args):
     return tag, out, res.received
 
 
-def host_oracles(jobs, work: str):
-    """The port's host oracle over each ``(tag, inp, spec)`` of ``jobs``:
-    the whole file under the config of ``spec`` (:func:`load_config`),
-    sharded over the CPU cores (documents are independent; the outputs are
-    compared as sets), every job on one pool of worker processes.  Returns
-    ``{tag: (kept, excluded, received)}``; every worker process is joined
-    before this returns."""
+def host_pool():
+    """A pool of spawned worker processes, one a CPU core up to 8."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
-    n = max(1, min(8, os.cpu_count() or 1))
+    return ProcessPoolExecutor(max(1, min(8, os.cpu_count() or 1)),
+                               mp_context=mp.get_context("spawn"))
+
+
+def host_oracles(jobs, work: str, pool=None):
+    """The port's host oracle over each ``(tag, inp, spec)`` of ``jobs``:
+    the whole file under the config of ``spec`` (:func:`load_config`),
+    sharded over the CPU cores (documents are independent; the outputs are
+    compared as sets), every job on one pool of worker processes (``pool``,
+    else a :func:`host_pool` of its own, joined before this returns).
+    Returns ``{tag: (kept, excluded, received)}``."""
+    if pool is None:
+        with host_pool() as own:
+            return host_oracles(jobs, work, own)
+    n = pool._max_workers
     out = {tag: (set(), set(), 0) for tag, _, _ in jobs}
     tasks = [(tag, inp, k, n, work, spec) for tag, inp, spec in jobs for k in range(n)]
-    with ProcessPoolExecutor(n, mp_context=mp.get_context("spawn")) as pool:
-        for tag, (k_path, e_path), got in pool.map(_host_shard, tasks):
-            kept, excl, received = out[tag]
-            out[tag] = (kept | read_set(k_path), excl | read_set(e_path), received + got)
+    for tag, (k_path, e_path), got in pool.map(_host_shard, tasks):
+        kept, excl, received = out[tag]
+        out[tag] = (kept | read_set(k_path), excl | read_set(e_path), received + got)
     return out
 
 
@@ -2231,6 +2258,10 @@ DANISH_BADWORDS_STEP = """- type: C4BadWordsFilter
   seed: 18
 """
 BADWORDS_SUBSET = 3000
+#: Path (a)'s documents: the first BADWORDS_DOCS of the corpus (every
+#: default bucket still fills), so that the native phase fits the
+#: script's time.
+BADWORDS_DOCS = 10000
 #: The window-hash multipliers (ops/badwords.py: 31 and MUL2).
 BADWORDS_MULS = (31, 1000003)
 
@@ -2373,7 +2404,8 @@ def badwords_batch_peak(pipe, rows):
 def badwords_whole_corpus(rows, work, device: str = "cuda"):
     """Path (a), its run: the JAX package's badwords benchmark config at
     list scale (``synth_badwords(515, n=400)`` as the ``en`` list in a
-    cache dir) over the whole corpus with the benchmark's injection,
+    cache dir) over the first ``BADWORDS_DOCS`` documents of the corpus
+    with the benchmark's injection,
     windowed, chain schedule, host tails off (so that the device decides
     every document but the astral ones, and the fold-hazard count is
     exact).  Returns the run, with its pipeline, input, config spec and
@@ -2387,7 +2419,7 @@ def badwords_whole_corpus(rows, work, device: str = "cuda"):
     with open(os.path.join(cache, "en"), "w", encoding="utf-8") as f:
         f.write("\n".join(words) + "\n")
     spec = (BADWORDS_CONFIG, cache)
-    inj = inject_badwords(rows, words, SEED + 5, BADWORDS_HAZARD_SHARE)
+    inj = inject_badwords(rows[:BADWORDS_DOCS], words, SEED + 5, BADWORDS_HAZARD_SHARE)
     inp = os.path.join(work, "corpus_badwords.parquet")
     write_parquet(inp, inj)
     held = {}
@@ -2578,6 +2610,344 @@ def badwords_phase(rows, work, geometry, device: str = "cuda"):
             "host_oracle_seconds": host_s, "seconds": seconds}
 
 
+# --- the native host core ----------------------------------------------------
+
+#: The exactness checks' documents: the first NATIVE_DOCS of the corpus and
+#: every CJK and astral one.
+NATIVE_DOCS = 2000
+#: The token-counting run's documents: the first TOKEN_DOCS.
+TOKEN_DOCS = 2000
+SHIPPED_CONFIG = os.path.join(ROOT, "configs", "pipeline_config.yaml")
+STANDIN_TOKENIZER = os.path.join(ROOT, "textblaster_tpu_torch", "data", "tokenizers", "gpt2",
+                                 "tokenizer.json")
+
+
+def native_build() -> dict:
+    """Build (or load) the port's native host core before any host route
+    needs it: the build seconds, the compiler's share and ``available()``;
+    fails when the core is not available on this host."""
+    from textblaster_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    seconds = time.perf_counter() - t0
+    ok = native.available()
+    print(f"native build: {seconds:.2f} s (g++ {native.last_build_seconds:.2f} s), "
+          f"{os.path.relpath(path, ROOT)}, available {ok}", flush=True)
+    if not ok:
+        fail("the native host core is not available on this host")
+    return {"seconds": seconds, "compile_seconds": native.last_build_seconds,
+            "library": os.path.relpath(path, ROOT), "available": ok}
+
+
+def _item_spans(text: str, sep):
+    """Code point spans of ``sep.split(text)``'s pieces."""
+    import numpy as np
+
+    out, start = [], 0
+    for m in sep.finditer(text):
+        out.append((start, m.start()))
+        start = m.end()
+    out.append((start, len(text)))
+    return np.array(out, dtype=np.int32).reshape(-1, 2)
+
+
+def _native_text_checks(texts):
+    """One worker task of the exactness checks: the core against the numpy
+    paths on ``texts``.  Returns ``(checks, [(text head, what), ...])`` of
+    the unequal ones."""
+    import numpy as np
+
+    from textblaster_tpu_torch import native
+    from textblaster_tpu_torch.filters.gopher_repetition import _LINE_RE, _PARAGRAPH_RE
+    from textblaster_tpu_torch.utils import text as T
+    from textblaster_tpu_torch.utils.chartables import classify, codepoints
+
+    checks, bad = 0, []
+    for t in texts:
+        cps = codepoints(t).astype(np.int32)
+        spans = native.word_spans_native(cps, classify(cps.astype(np.uint32)))
+        with native.disabled():
+            want = T._word_spans_raw(t)
+        words = [t[a:b] for a, b in want]
+        pairs = [("spans", [tuple(x) for x in spans.tolist()], want)]
+        pairs += [(f"top{n}", native.top_ngram_bytes(cps, spans, n),
+                   T.find_top_duplicate(T.get_n_grams(words, n))) for n in TOP_NS]
+        pairs += [(f"dup{n}", native.dup_ngram_bytes(cps, spans, n),
+                   T.find_all_duplicate(words, n)) for n in DUP_NS]
+        trimmed = t.strip()
+        tcps = codepoints(trimmed).astype(np.int32)
+        pairs += [(f"items {sep.pattern!r}", native.dup_items(tcps, _item_spans(trimmed, sep)),
+                   T.find_duplicates(sep.split(trimmed))) for sep in (_LINE_RE, _PARAGRAPH_RE)]
+        checks += len(pairs)
+        bad += [(t[:40], what) for what, got, ref in pairs if got != ref]
+    return checks, bad
+
+
+def _native_pack_checks(corpus_path: str, width: int):
+    """One worker task of the exactness checks: ``pack_utf8`` at ``width``,
+    64 rows a call, over the Arrow buffers of the corpus Parquet (and, at
+    the first default bucket, ``utf8_lengths``), against the numpy code
+    points.  Returns ``(checks, documents, [(what, row), ...])``."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from textblaster_tpu_torch import native
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
+    from textblaster_tpu_torch.utils.chartables import codepoints
+
+    checks, docs, bad = 0, 0, []
+    for chunk in pq.read_table(corpus_path, columns=["text"]).column("text").chunks:
+        wide = pa.types.is_large_string(chunk.type)
+        _, offs_buf, data_buf = chunk.buffers()
+        offs = np.frombuffer(offs_buf, dtype=np.int64 if wide else np.int32)
+        offs = offs[chunk.offset: chunk.offset + len(chunk) + 1].astype(np.int64)
+        data = np.frombuffer(data_buf, dtype=np.uint8) if data_buf is not None \
+            else np.zeros(1, dtype=np.uint8)
+        refs = [codepoints(t).astype(np.int32) for t in chunk.to_pylist()]
+        if width == DEFAULT_BUCKETS[0]:
+            checks += 1
+            if native.utf8_lengths(data, offs).tolist() != [len(r) for r in refs]:
+                bad.append(("utf8_lengths", docs))
+        for b0 in range(0, len(refs), 64):
+            cps, lens = native.pack_utf8(data, offs[b0: b0 + 65], width, 64)
+            part = refs[b0: b0 + 64]
+            for i, ref in enumerate(part):
+                n = len(ref)
+                ok = (lens[i] == -n and not cps[i].any()) if n > width else (
+                    lens[i] == n and np.array_equal(cps[i, :n], ref) and not cps[i, n:].any())
+                checks += 1
+                if not ok:
+                    bad.append((f"pack_utf8 at {width}", docs + b0 + i))
+            checks += 1
+            if lens[len(part):].any() or cps[len(part):].any():
+                bad.append((f"pack_utf8 padding at {width}", docs + b0))
+        docs += len(refs)
+    return checks, docs, bad
+
+
+def native_exactness_tasks(rows, corpus_path: str, pool):
+    """Submit the exactness checks to ``pool``: the core against the numpy
+    paths over the first ``NATIVE_DOCS`` documents and every CJK and astral
+    one (word spans, the n-gram scans at the offline config's ``TOP_NS`` /
+    ``DUP_NS``, ``dup_items`` over GopherRepetition's lines and
+    paragraphs), and ``utf8_lengths`` / ``pack_utf8`` at every default
+    bucket over the corpus Parquet.  Returns what
+    :func:`native_exactness_result` reads."""
+    import re
+
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
+    from textblaster_tpu_torch.utils.cjk import DICT_SCRIPT_RE
+
+    astral = re.compile("[\U00010000-\U0010FFFF]")
+    chosen = [t for i, (_, t) in enumerate(rows)
+              if i < NATIVE_DOCS or DICT_SCRIPT_RE.search(t) or astral.search(t)]
+    by_len = sorted(chosen, key=len, reverse=True)
+    parts = [by_len[k::32] for k in range(32)]  # longest first, dealt round
+    text_futs = [pool.submit(_native_text_checks, part) for part in parts if part]
+    pack_futs = [pool.submit(_native_pack_checks, corpus_path, w) for w in DEFAULT_BUCKETS]
+    return {"documents": len(chosen), "text": text_futs, "pack": pack_futs,
+            "t0": time.perf_counter()}
+
+
+def native_exactness_result(tasks) -> dict:
+    """Collect :func:`native_exactness_tasks`; every result must be
+    equal."""
+    from textblaster_tpu_torch.ops.packing import DEFAULT_BUCKETS
+
+    checks, bad, docs = 0, [], 0
+    for fut in tasks["text"]:
+        c, b = fut.result()
+        checks, bad = checks + c, bad + b
+    for fut in tasks["pack"]:
+        c, docs, b = fut.result()
+        checks, bad = checks + c, bad + b
+    wall = time.perf_counter() - tasks["t0"]
+    out = {"documents": tasks["documents"], "corpus_documents": docs, "checks": checks,
+           "mismatches": len(bad), "pool_seconds": wall}
+    print(f"native exactness: {checks} checks on this host's CPU ({tasks['documents']} "
+          f"documents: word spans, top {list(TOP_NS)}, dup {list(DUP_NS)}, duplicate lines "
+          f"and paragraphs; {docs} corpus documents: utf8_lengths, pack_utf8 at "
+          f"{list(DEFAULT_BUCKETS)}), {len(bad)} unequal, {wall:.1f} s on the worker pool "
+          "(with the token counter's host oracle)", flush=True)
+    if bad:
+        fail(f"the native core differs from the numpy paths: {bad[:5]}")
+    return out
+
+
+def native_main_path(config, sub_inp: str, work: str, oracle, sub_ids,
+                     device: str = "cuda") -> dict:
+    """The chain schedule, windowed, host tails on, over the first
+    ``STAGED_SUBSET`` documents with the core on and with it off
+    (``native.disabled()``), in that order: both at parity 1.0 against the
+    host oracle, the kept and excluded files byte-identical, the core's
+    calls above 0 with it on and 0 with it off."""
+    import contextlib
+
+    from textblaster_tpu_torch import native
+
+    runs = {}
+    for tag in ("native_on", "native_off"):
+        native.reset_calls()
+        with native.disabled() if tag == "native_off" else contextlib.nullcontext():
+            run = device_run(config, sub_inp, work, tag, device)
+        run["native_calls"] = dict(native.CALLS)
+        run["decision_parity"], equal = _parity(run, *oracle, ids=sub_ids)
+        if run["decision_parity"] != 1.0 or not equal:
+            fail(f"{tag}: the run and the host oracle differ (parity {run['decision_parity']})")
+        runs[tag] = run
+    on, off = runs["native_on"], runs["native_off"]
+    for a, b in zip(on["outputs"], off["outputs"]):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"the core on and off wrote different bytes to {os.path.basename(a)}")
+    if not on["native_calls"]["word_spans"] or any(off["native_calls"].values()):
+        fail(f"native calls: on {on['native_calls']}, off {off['native_calls']}")
+    out = {}
+    for tag, run in runs.items():
+        sec = run["seconds"]
+        out[tag] = {"documents": run["received"], "docs_per_s": run["device_docs_per_s"],
+                    "seconds": run["device_seconds"], "host_routes_s": sec["host_routes"],
+                    "host_tails_s": sec["host_tails"], "host_routes": run["host_routes"],
+                    "dup_walk_s": run["dup_walk"]["seconds"],
+                    "device_busy_share": run["device_busy_share"],
+                    "native_calls": run["native_calls"], "parity": run["decision_parity"]}
+    out["docs_per_s_on_over_off"] = on["device_docs_per_s"] / off["device_docs_per_s"]
+    out["host_routes_on_over_off"] = on["seconds"]["host_routes"] / max(off["seconds"]["host_routes"], 1e-9)
+    print("native main path: " + "; ".join(
+        f"{tag} {r['docs_per_s']:.2f} docs/s ({r['seconds']:.2f} s), host routes "
+        f"{r['host_routes_s']:.3f} s (tails {r['host_tails_s']:.3f} s) "
+        f"{json.dumps(r['host_routes'])}, dup walk {r['dup_walk_s']:.2f} s, native calls "
+        f"{json.dumps(r['native_calls'])}" for tag, r in out.items() if tag in runs)
+        + f"; on/off docs/s {out['docs_per_s_on_over_off']:.4f}, host routes "
+        f"{out['host_routes_on_over_off']:.4f}; files byte-identical, parity 1.0", flush=True)
+    return out
+
+
+def write_standin_merges(path: str) -> int:
+    """The vendored stand-in tokenizer's ``model.merges`` as a GPT-2
+    ``merges.txt`` (``#version: 0.2``, one ``a b`` a line); returns the
+    merges written."""
+    with open(STANDIN_TOKENIZER, encoding="utf-8") as f:
+        merges = json.load(f)["model"]["merges"]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        f.writelines((m if isinstance(m, str) else " ".join(m)) + "\n" for m in merges)
+    return len(merges)
+
+
+def token_counter_input(rows, work: str):
+    """The token-counting run's input (the first ``TOKEN_DOCS`` documents)
+    and spec: ``configs/pipeline_config.yaml`` with TokenCounter on a
+    ``merges.txt`` written from the stand-in's merges.  Returns ``(input,
+    spec, merges)``."""
+    merges_path = os.path.join(work, "merges.txt")
+    n_merges = write_standin_merges(merges_path)
+    with open(SHIPPED_CONFIG, encoding="utf-8") as f:
+        text = f.read()
+    if text.count("tokenizer_name: gpt2") != 1:
+        fail("configs/pipeline_config.yaml no longer ends in TokenCounter(gpt2)")
+    spec = (text.replace("tokenizer_name: gpt2", f"tokenizer_name: '{merges_path}'"), None)
+    inp = os.path.join(work, "corpus_tokens.parquet")
+    write_parquet(inp, rows[:TOKEN_DOCS])
+    return inp, spec, n_merges
+
+
+def token_counter_run(inp: str, spec, n_merges: int, oracle, work: str,
+                      device: str = "cuda") -> dict:
+    """The shipped config with TokenCounter on the native BPE core
+    (:func:`token_counter_input`) on ``device``, held to the host oracle
+    under the same spec row for row; every kept row carries
+    ``token_count``, and the core counted once a kept row."""
+    from textblaster_tpu_torch import native
+
+    native.reset_calls()
+    run = device_run(load_config(spec), inp, work, "tokens", device)
+    bpe = native.CALLS["bpe_count"]
+    host_kept, host_excl, host_received = oracle
+    run["decision_parity"], equal = _parity(run, host_kept, host_excl)
+    if run["decision_parity"] != 1.0 or not equal or run["received"] != host_received:
+        fail(f"the token-counting run and the host oracle differ (parity {run['decision_parity']})")
+    kept = read_set(run["outputs"][0])
+    counts = [json.loads(m).get("token_count") for _, _, m in kept]
+    if not kept or not all(c is not None and c.isdigit() for c in counts):
+        fail("a kept row of the token-counting run has no token_count")
+    if bpe != sum(1 for _, t, _ in kept if t):
+        fail(f"the BPE core counted {bpe} texts for {len(kept)} kept rows")
+    check_report(run)
+    sec = run["seconds"]
+    out = {"documents": run["received"], "docs_per_s": run["device_docs_per_s"],
+           "seconds": run["device_seconds"], "kept": run["kept"], "excluded": run["excluded"],
+           "merges": n_merges, "bpe_calls": bpe, "tokens": sum(int(c) for c in counts),
+           "host_routes_s": sec["host_routes"], "host_routes": run["host_routes"],
+           "parity": run["decision_parity"]}
+    print(f"token counter: {run['received']} documents of configs/pipeline_config.yaml with "
+          f"TokenCounter on a {n_merges}-merge merges.txt on {device}, "
+          f"{out['docs_per_s']:.2f} docs/s ({out['seconds']:.2f} s), parity 1.0, kept "
+          f"{run['kept']} (every one with token_count, {out['tokens']} tokens) / excluded "
+          f"{run['excluded']}, BPE calls {bpe}, host routes {sec['host_routes']:.3f} s "
+          f"{json.dumps(run['host_routes'])}", flush=True)
+    return out
+
+
+def native_phase(rows, work: str, oracle, build: dict, device: str = "cuda") -> dict:
+    """The native host core: its build (:func:`native_build`, at the
+    start of the script), the exactness checks and the token-counting
+    run's host oracle on one worker pool (before any run, so that no run
+    shares the CPU with them), the main path with the core on and off,
+    and the shipped config's TokenCounter on a ``merges.txt``."""
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+
+    t0 = time.perf_counter()
+    cpu = host_cpu()
+    print(f"native: library {build['library']}, build {build['seconds']:.2f} s, available "
+          f"{build['available']}, host CPU {cpu}", flush=True)
+    tok_inp, tok_spec, n_merges = token_counter_input(rows, work)
+    with host_pool() as pool:
+        tasks = native_exactness_tasks(rows, os.path.join(work, "corpus.parquet"), pool)
+        t1 = time.perf_counter()
+        tok_oracle = host_oracles([("tokens", tok_inp, tok_spec)], work, pool)["tokens"]
+        exact = native_exactness_result(tasks)
+        pool_s = time.perf_counter() - t1
+    sub_ids = {r[0] for r in rows[:STAGED_SUBSET]}
+    main = native_main_path(load_pipeline_config(CONFIG),
+                            os.path.join(work, "corpus_staged.parquet"), work, oracle, sub_ids,
+                            device)
+    tokens = token_counter_run(tok_inp, tok_spec, n_merges, tok_oracle, work, device)
+    seconds = time.perf_counter() - t0
+    print(f"native phase: {seconds:.1f} s (worker pool: exactness and the token counter's "
+          f"host oracle {pool_s:.1f} s)", flush=True)
+    return {"build": build, "host_cpu": cpu, "exactness": exact, "main_path": main,
+            "token_counter": tokens, "pool_seconds": pool_s, "seconds": seconds}
+
+
+def host_cpu() -> str:
+    """This host's CPU, beside every host number: ``lscpu``'s model name,
+    else ``/proc/cpuinfo``'s, with the vendor, family and model and the
+    CPUs this process may use."""
+    fields = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    for line in out.splitlines():
+        key, _, val = line.partition(":")
+        fields.setdefault("lscpu " + key.strip(), val.strip())
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8", errors="replace") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                fields.setdefault("cpuinfo " + key.strip(), val.strip())
+    except OSError:
+        pass
+    name = next((v for v in (fields.get("lscpu Model name"), fields.get("cpuinfo model name"))
+                 if v and v.lower() not in ("unknown", "-")), "unknown")
+    ident = "/".join(fields.get(k, "?") for k in ("cpuinfo vendor_id", "cpuinfo cpu family",
+                                                    "cpuinfo model"))
+    return f"{name} ({ident}, {len(os.sched_getaffinity(0))} CPUs)"
+
+
 def _journal_commits(path):
     with open(path) as f:
         return [json.loads(line) for line in f if '"checkpoint_commit"' in line]
@@ -2742,6 +3112,9 @@ HANG_DEADLINE_MIN_S = 0.5  # the hang run's least stage deadline
 #: Documents longer than this are the real out-of-memory run's: every one
 #: packs into the 65536 bucket, so only that bucket dispatches.
 OOM_MIN_CHARS = 32768
+#: The real out-of-memory runs take the first OOM_DOCS of them (three full
+#: batches of 64 rows), so that the native phase fits the script's time.
+OOM_DOCS = 192
 #: The ladder and watchdog counters (the port's METRICS, JAX names).
 LADDER = ("resilience_retries_device_total", "resilience_retry_exhausted_total",
           "resilience_ladder_split_total", "resilience_ladder_host_total",
@@ -2865,7 +3238,7 @@ def fault_phase(rows, work, checked):
     os.makedirs(work, exist_ok=True)
     inputs = {}
     for name, part in (("fault", rows[:FAULT_DOCS]), ("outage", rows[:OUTAGE_DOCS]),
-                       ("oom", [r for r in rows if len(r[1]) > OOM_MIN_CHARS])):
+                       ("oom", [r for r in rows if len(r[1]) > OOM_MIN_CHARS][:OOM_DOCS])):
         inputs[name] = os.path.join(work, f"corpus_{name}.parquet")
         write_parquet(inputs[name], part)
     config = fault_config()
@@ -3112,6 +3485,7 @@ def main() -> int:
     print(f"CUDA error names (the wrappers' messages): {names}", flush=True)
     if any(names[c][0] != kb.CUDA_ERRORS[c][0] for c in names):
         fail(f"the runtime names CUDA errors {names}, the wrappers' table {kb.CUDA_ERRORS}")
+    native_info = native_build()
 
     t0 = time.perf_counter()
     rows = make_corpus(N_DOCS, SEED)
@@ -3136,6 +3510,7 @@ def main() -> int:
     geometry, known_keys = auto_geometry_phase(rows, work, oracle, default_keys)
     print(f"auto-geometry phase: {time.perf_counter() - t0:.1f} s", flush=True)
     badwords = badwords_phase(rows, work, geometry)
+    native = native_phase(rows, work, oracle, native_info)
     checkpoint = checkpoint_phase(rows, work, cli_run, known_keys)
     t0 = time.perf_counter()
     faults = fault_phase(rows, work, checked)
@@ -3160,7 +3535,7 @@ def main() -> int:
             "name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
             "launches": summary["chain"]["launches"][k], "max_abs_err": errs[k],
             # Each path's own run: the chain main path, badwords path (a)
-            # over the whole corpus and path (b) in the Danish pipeline.
+            # over its first 10,000 documents and path (b) in the Danish pipeline.
             "launches_by_path": {"chain": summary["chain"]["launches"][k],
                                  "badwords": badwords["whole_corpus"]["launches"][k],
                                  "danish_badwords": badwords["danish"]["launches"][k]},
@@ -3176,7 +3551,7 @@ def main() -> int:
                    "cuda": torch.version.cuda, "kernels": kernels,
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
                    "main_path": summary, "profile": profiled, "cli": cli_run,
-                   "auto_geometry": geometry, "badwords": badwords,
+                   "auto_geometry": geometry, "badwords": badwords, "native": native,
                    "checkpoint": checkpoint, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

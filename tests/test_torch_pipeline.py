@@ -10,6 +10,7 @@ compiled pipeline pinned to the CPU, which in turn must equal the host
 oracle.
 """
 
+import jax
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -40,6 +41,10 @@ def one_torch_thread():
 
 CONFIG = "configs/pipeline_config_offline.yaml"
 BUCKETS = (512, 2048)
+#: XLA's backend optimization off for the JAX side's phase programs: the
+#: batches are 16 rows, and compiling the programs is most of the time.
+JAX_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0,
+                        "xla_llvm_disable_expensive_passes": True}
 
 DANISH = (
     "det er en god dag og vi skal ud at gå tur i skoven solen skinner over "
@@ -127,10 +132,11 @@ def test_stats_dict_matches_jax_per_bucket_phase(corpus, monkeypatch, bucket, sc
     docs = [JaxDoc(id=i, source="t", content=t) for i, t in fits[:16]]
     batch = jax_pack(docs, 16, bucket)
     for phase in range(len(jp.phases)):
-        want = {
-            k: np.asarray(v)
-            for k, v in jp._build_fn(bucket, phase)(batch.cps, batch.lengths).items()
-        }
+        # The program jp._build_fn(bucket, phase) jits on the CPU, compiled
+        # with JAX_COMPILER_OPTIONS.
+        fn = jax.jit(jp._build_fn(bucket, phase, jit=False))
+        compiled = fn.lower(batch.cps, batch.lengths).compile(compiler_options=JAX_COMPILER_OPTIONS)
+        want = {k: np.asarray(v) for k, v in compiled(batch.cps, batch.lengths).items()}
         got = tp._build_fn(bucket, phase)(
             torch.from_numpy(batch.cps), torch.from_numpy(batch.lengths)
         )

@@ -100,10 +100,19 @@ def _both(texts):
     return (jnp.asarray(cps), jnp.asarray(lens)), (torch.from_numpy(cps), torch.from_numpy(lens))
 
 
+#: XLA's backend optimization off for the JAX side: its batches are a few
+#: rows, and compiling its programs is most of this file's time.
+_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0,
+                     "xla_llvm_disable_expensive_passes": True}
+
+
 def _jit(fn):
     # A fresh wrapper per call: the JAX side reads TEXTBLAST_TABLE_IMPL at
     # trace time.
-    return jax.jit(lambda *a: fn(*a))
+    def run(*args):
+        return jax.jit(fn).lower(*args).compile(compiler_options=_COMPILER_OPTIONS)(*args)
+
+    return run
 
 
 @pytest.mark.parametrize("with_hashes", [True, False])

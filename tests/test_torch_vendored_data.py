@@ -5,8 +5,8 @@ host steps that read them, against the JAX package with no network.
   the C4 bad-word lists for ``da`` and ``en``, byte for byte as the JAX
   package ships them.
 * ``TokenCounter("gpt2")`` falls back to the vendored tokenizer in both
-  packages and counts the same tokens; a ``merges.txt`` tokenizer raises
-  ``UnexpectedError`` (the native BPE core is not ported).
+  packages and counts the same tokens; a ``merges.txt`` tokenizer counts
+  with the port's native BPE core, as the JAX package's does.
 * ``C4BadWordsFilter`` compiles the same pattern from the vendored lists in
   both packages, without trying a download.
 * The port's ``run --device cpu`` with the shipped
@@ -93,11 +93,23 @@ def test_token_counter_counts_as_the_jax_package_offline(offline):
     assert int(got["token_count"]) >= 0
 
 
-def test_token_counter_merges_route_says_it_is_not_ported(tmp_path):
+def test_token_counter_merges_route_says_it_is_not_ported(offline, tmp_path):
+    """The ``merges.txt`` route no longer raises: it counts on the port's
+    native BPE core (``the`` is 1 token, `` then`` 3: ``Ġ``, ``the``,
+    ``n``).  A merges file that does not decode, and a path that is no
+    file, still fail with the loading error."""
+    from textblaster_tpu_torch.data_model import TextDocument as TorchDoc
+
     merges = tmp_path / "merges.txt"
-    merges.write_text("#version: 0.2\nt h\n", encoding="utf-8")
-    with pytest.raises(UnexpectedError, match="native BPE core"):
-        TorchTokenCounter(str(merges))
+    merges.write_text("#version: 0.2\nt h\nth e\n", encoding="utf-8")
+    doc = TorchTokenCounter(str(merges)).process(TorchDoc(id="1", source="s", content="the then"))
+    assert doc.metadata["token_count"] == "4"
+    bad = tmp_path / "bad" / "merges.txt"
+    bad.parent.mkdir()
+    bad.write_bytes(b"#version: 0.2\n\xff\xfe \xc3\n")
+    for path in (bad, tmp_path / "missing" / "merges.txt"):
+        with pytest.raises(UnexpectedError, match="Error in loading tokenizer"):
+            TorchTokenCounter(str(path))
 
 
 @pytest.mark.parametrize("lang", ["da", "en"])

@@ -10,8 +10,9 @@ token_counter.rs:14; this build adds offline paths first since TPU pods are
 often egress-less):
 
 1. a local path to a ``tokenizer.json`` file or a directory containing one;
-2. a local ``merges.txt`` (GPT-2 byte-level BPE), which needs the native C++
-   BPE core; the port has no native core yet, so this route raises;
+2. a local ``merges.txt`` (GPT-2 byte-level BPE) counted by the native C++
+   core (``textblaster_tpu_torch/native``) — no vocab ids are needed for a
+   count, and no ``tokenizers`` package either;
 3. the HuggingFace hub cache / network via ``tokenizers.Tokenizer.from_pretrained``;
 4. a vendored stand-in under ``textblaster_tpu_torch/data/tokenizers/<name>/`` —
    an in-repo-trained byte-level BPE shipped so the default config's
@@ -39,6 +40,7 @@ class TokenCounter(ProcessingStep):
 
     def __init__(self, tokenizer_name: str) -> None:
         self._tokenizer = None
+        self._bpe = None
         #: True when the in-repo-trained stand-in replaced an unreachable hub
         #: tokenizer: counts then differ from the reference's, and every
         #: document is stamped so divergent runs are identifiable
@@ -58,10 +60,11 @@ class TokenCounter(ProcessingStep):
 
                 self._tokenizer = Tokenizer.from_file(json_path)
             elif merges_path is not None and os.path.isfile(merges_path):
-                raise UnexpectedError(
-                    f"Error in loading tokenizer: {merges_path} needs the native "
-                    "BPE core, which is not ported yet; give a tokenizer.json"
-                )
+                # Byte-level BPE counting on the native core — the egress-less
+                # path (vocab ids are not needed for a token *count*).
+                from ..native import BpeCounter
+
+                self._bpe = BpeCounter.from_file(merges_path)
             else:
                 from tokenizers import Tokenizer
 
@@ -91,15 +94,18 @@ class TokenCounter(ProcessingStep):
                     from ..utils.metrics import METRICS
 
                     METRICS.inc("worker_tokenizer_standin_total")
-        except UnexpectedError:
-            raise
         except Exception as e:
             raise UnexpectedError("Error in loading tokenizer") from e
 
     def process(self, document: TextDocument) -> TextDocument:
         try:
-            encoding = self._tokenizer.encode(document.content, add_special_tokens=True)
-            count = len(encoding.tokens)
+            if self._bpe is not None:
+                count = self._bpe.count(document.content)
+            else:
+                encoding = self._tokenizer.encode(
+                    document.content, add_special_tokens=True
+                )
+                count = len(encoding.tokens)
         except Exception as e:
             raise UnexpectedError(str(e)) from e
         document.metadata["token_count"] = str(count)

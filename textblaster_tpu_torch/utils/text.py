@@ -45,6 +45,7 @@ from .chartables import (
     codepoints,
 )
 from .chartables import PUNCTUATION  # re-export for filters  # noqa: F401
+from .. import native as _native  # C++ fast path (built at first use; numpy otherwise)
 
 
 def _attach_extend(word: np.ndarray, cls: np.ndarray) -> np.ndarray:
@@ -137,7 +138,9 @@ def word_spans(text: str, cjk_dict: bool = True) -> List[Tuple[int, int]]:
     """(start, end) codepoint spans of the word segments of ``text``.
 
     The segments returned correspond 1:1 to ``split_into_words(text)``.
-    This copy has only the numpy path (the JAX package's source of truth).
+    Dispatches to the native C++ core when available (identical semantics,
+    asserted by tests/test_torch_native.py); this numpy path is the source
+    of truth.
 
     ``cjk_dict`` (default on — the oracle semantics) re-segments runs in
     dictionary scripts: script-transition breaks plus greedy longest-match
@@ -167,6 +170,9 @@ def word_spans(text: str, cjk_dict: bool = True) -> List[Tuple[int, int]]:
 def _word_spans_raw(text: str) -> List[Tuple[int, int]]:
     cps = codepoints(text)
     cls = classify(cps)
+    spans = _native.word_spans_native(cps.astype(np.int32), cls)
+    if spans is not None:
+        return [(int(s), int(e)) for s, e in spans]
     in_word = _word_mask(cps, cls)
     n = cps.shape[0]
 
@@ -344,8 +350,21 @@ def ngram_dup_stats(
     Returns ``(top, dup)`` where ``top[n]`` = ``find_top_duplicate`` of the
     space-joined n-grams and ``dup[n]`` = ``find_all_duplicate`` byte sums —
     the quantities GopherRepetition thresholds (gopher_rep.rs:163-196).
-    Computed via the Python primitives.
+    Computed by the native core over one shared segmentation when available,
+    else via the Python primitives.
     """
+    from .cjk import DICT_SCRIPT_RE
+
+    # The native core segments run-whole; texts with dictionary scripts take
+    # the Python path so their word lists include the CJK re-segmentation.
+    if DICT_SCRIPT_RE.search(text) is None and _native.available():
+        cps = codepoints(text).astype(np.int32)
+        cls = classify(cps.astype(np.uint32))
+        spans = _native.word_spans_native(cps, cls)
+        if spans is not None:
+            top = {n: _native.top_ngram_bytes(cps, spans, n) for n in top_ns}
+            dup = {n: _native.dup_ngram_bytes(cps, spans, n) for n in dup_ns}
+            return top, dup
     words = split_into_words(text)
     top = {n: find_top_duplicate(get_n_grams(words, n)) for n in top_ns}
     dup = {n: find_all_duplicate(words, n) for n in dup_ns}
