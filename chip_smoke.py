@@ -1046,18 +1046,20 @@ def time_dup_walk():
 
 
 def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=None,
-               batch_size=None, prepare=None):
+               batch_size=None, prepare=None, mesh=None):
     """One run of the port's ``run`` entry point over ``inp``; every kernel
     launch counter and the dup-walk counters are set to 0 just before and
     read just after.  ``prepare(pipeline)`` runs before the run.  The
     run's report (``build_run_report``, relative to a ``metrics_snapshot``
-    taken just before) rides along as ``report``."""
+    taken just before) rides along as ``report``.  With a ``mesh`` the
+    pipeline shards its batches over it (``device`` names its type)."""
     from textblaster_tpu_torch.ops import scan, sort, stats
     from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
     from textblaster_tpu_torch.runner import run_pipeline
     from textblaster_tpu_torch.utils.metrics import build_run_report, metrics_snapshot
 
-    pipe = CompiledPipeline(config, device=device, batch_size=batch_size)
+    pipe = CompiledPipeline(config, device=device if mesh is None else None,
+                            batch_size=batch_size, mesh=mesh)
     if prepare is not None:
         prepare(pipe)
     if device == "cuda":
@@ -1087,8 +1089,9 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
     )
     return {
         "schedule": tag,
-        "overlapped": config.overlap.enabled and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1",
-        "host_tails": os.environ.get("TEXTBLAST_HOST_TAILS") != "off",
+        "overlapped": (config.overlap.enabled and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1"
+                       and mesh is None),
+        "host_tails": os.environ.get("TEXTBLAST_HOST_TAILS") != "off" and mesh is None,
         "received": res.received,
         "kept": res.success,
         "excluded": res.filtered,
@@ -1107,6 +1110,8 @@ def device_run(config, inp: str, work: str, tag: str, device: str, errors_file=N
         "chain_shape_launches": sorted(([list(k), v] for k, v in
                                         scan.CHAIN_SHAPE_LAUNCHES.items()), key=str),
         "pipeline_launches": dict(c["launches"]),
+        "shard_launches": c.get("shard_launches"),
+        "geometry": pipe.geometry.to_dict(),
         "batches_by_bucket": {str(k): v for k, v in sorted(c["batches_by_bucket"].items())},
         "device_rows": c["device_rows"],
         "upload_bytes": c["upload_bytes"],
@@ -3106,6 +3111,127 @@ def checkpoint_phase(rows, work: str, cli_run, known_keys, device: str = "cuda")
 
 # --- fault phase --------------------------------------------------------------
 
+#: The main path's kernels, each to be launched on every shard of a mesh run.
+MESH_KERNELS = ("chain_scan", "fused_scan", "affine_scan", "dfa_scan", "sort2")
+#: Rows of the stage-level batches (each bucket's corpus documents).
+MESH_STAGE_ROWS = 16
+
+
+def mesh_stage_checks(corpus, config, device: str = "cuda") -> dict:
+    """For one packed batch of corpus documents per (bucket, phase) of the
+    default ladder, the two-shard mesh ``[cuda:0, cuda:0]``'s stats dict
+    against the single device's, ``torch.equal`` on every key (the
+    documents are BMP-only, so the single device's u16 wire takes them)."""
+    import torch
+
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.packing import PACK_MARGIN, pack_documents
+    from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+    from textblaster_tpu_torch.parallel.mesh import data_mesh
+
+    one = CompiledPipeline(config, device=device, batch_size=MESH_STAGE_ROWS)
+    two = CompiledPipeline(config, batch_size=MESH_STAGE_ROWS, mesh=data_mesh([device] * 2))
+    checked, lo = {}, 0
+    for length in one.buckets:
+        docs = [TextDocument(id=i, source="s", content=t) for i, t in corpus
+                if max(lo, length // 4) < len(t) <= length - PACK_MARGIN
+                and max(map(ord, t)) < 0x2E80][:MESH_STAGE_ROWS]
+        lo = length
+        batch = pack_documents(docs, MESH_STAGE_ROWS, length)
+        for phase in range(len(one.phases)):
+            want = one.run_batch(batch, phase)[0]
+            got = two.run_batch(batch, phase)[0]
+            if sorted(got) != sorted(want):
+                fail(f"mesh stage b{length}/p{phase}: keys {sorted(got)} against {sorted(want)}")
+            bad = [k for k in want
+                   if not torch.equal(torch.from_numpy(got[k]), torch.from_numpy(want[k]))]
+            if bad:
+                fail(f"mesh stage b{length}/p{phase}: the two shards differ from one device "
+                     f"at {bad}")
+            checked[f"b{length}/p{phase}"] = len(want)
+    return {"programs": checked, "shard_launches": two.counters["shard_launches"]}
+
+
+def mesh_phase(rows, work: str, oracle, summary, device: str = "cuda") -> dict:
+    """The data mesh: the main path (chain schedule) over the subset's
+    documents on ``[cuda:0]``, ``[cuda:0, cuda:0]`` (two shards on two
+    streams of the card) and the default mesh (every visible GPU), each at
+    parity 1.0 against the host oracle, its kept and excluded rows those
+    of the single-device windowed run with tails off over the same file
+    (the mesh keeps every document on the device), and every main-path
+    kernel launched on every shard; the stage level (:func:`mesh_stage_checks`);
+    ``dryrun_multichip`` over every visible GPU and over two entries; the
+    mesh runs' docs/s beside the single-device windowed and serial runs of
+    the same documents in this call.  A CPU rehearsal (``device="cpu"``)
+    takes three CPU entries for the default mesh."""
+    import torch
+
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.graft_entry import dryrun_multichip
+    from textblaster_tpu_torch.parallel.mesh import data_mesh
+
+    t0 = time.perf_counter()
+    config = load_pipeline_config(CONFIG)
+    sub = rows[:STAGED_SUBSET]
+    sub_inp = os.path.join(work, "corpus_staged.parquet")
+    sub_ids = {r[0] for r in sub}
+    host_kept, host_excl = oracle
+    single = summary["chain_tails_off"]
+    ref = [read_set(p) for p in single["outputs"]]
+    one = "cuda:0" if device == "cuda" else device
+    meshes = (("mesh_1", data_mesh([one])), ("mesh_2", data_mesh([one, one])),
+              ("mesh_default", data_mesh() if device == "cuda" else data_mesh([one] * 3)))
+    out = {"documents": len(sub), "meshes": {}}
+    for tag, mesh in meshes:
+        run = device_run(config, sub_inp, work, tag, device, mesh=mesh)
+        run["decision_parity"], equal = _parity(run, host_kept, host_excl, sub_ids)
+        same = [read_set(p) for p in run["outputs"]] == ref
+        shards = run["shard_launches"]
+        print(f"mesh, {tag} ({[str(d) for d in mesh.devices]}): {run['received']} documents, "
+              f"{run['device_docs_per_s']:.2f} docs/s ({run['device_seconds']:.2f} s), parity "
+              f"{run['decision_parity']}, files equal to the single-device windowed run "
+              f"{same}, batch sizes {run['geometry']['batch_sizes']} (buckets "
+              f"{run['geometry']['buckets']}), host routes {json.dumps(run['host_routes'])}, "
+              f"wire {run['wire']}, launches per shard "
+              f"{[{k: s[k] for k in MESH_KERNELS} for s in shards]}", flush=True)
+        if run["decision_parity"] != 1.0 or not equal or not same:
+            fail(f"{tag}: parity {run['decision_parity']}, equal to the oracle {equal}, "
+                 f"equal to the single-device run {same}")
+        if run["overlapped"] or run["wire"] != "cp32" or run["host_routes"]["host_tail"]:
+            fail(f"{tag}: a mesh run must be serial, on the int32 wire, with no host tails")
+        check_report(run)
+        if len(shards) != mesh.size:
+            fail(f"{tag}: {len(shards)} shard launch tables for {mesh.size} entries")
+        for i, s in enumerate(shards):
+            for k in MESH_KERNELS:
+                if s[k] <= 0 and device == "cuda":  # the CPU runs the plain versions
+                    fail(f"{tag}: kernel {k} was never launched on shard {i}")
+        for k in MESH_KERNELS:
+            if run["launches"][k] != sum(s[k] for s in shards):
+                fail(f"{tag}: {k}'s launches {run['launches'][k]} are not the shards' sum")
+        for key in ("report", "outputs"):
+            run.pop(key)
+        out["meshes"][tag] = run
+    t1 = time.perf_counter()
+    out["stage"] = mesh_stage_checks(sub, config, device)
+    print(f"mesh stage: {len(out['stage']['programs'])} (bucket, phase) programs, the two-shard "
+          f"stats dict torch.equal to one device's on every key "
+          f"({sum(out['stage']['programs'].values())} keys), launches per shard "
+          f"{[{k: s[k] for k in MESH_KERNELS} for s in out['stage']['shard_launches']]} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    for n in sorted({torch.cuda.device_count() if device == "cuda" else 3, 2}):
+        dryrun_multichip(n, None if device == "cuda" else device)
+    speeds = {tag: round(run["device_docs_per_s"], 2) for tag, run in out["meshes"].items()}
+    for tag in ("chain_tails_off", "chain_serial"):
+        speeds[tag] = round(summary[tag]["device_docs_per_s"], 2)
+    out["docs_per_s"] = speeds
+    out["seconds"] = time.perf_counter() - t0
+    card = smi_line() if device == "cuda" else device
+    print(f"mesh speed (docs/s over the same {len(sub)} documents, this call; "
+          f"{card}): {json.dumps(speeds)}; mesh phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 FAULT_DOCS = 1000  # the retry, split and hang runs' documents
 OUTAGE_DOCS = 500  # the outage and fatal runs' documents
 HANG_DEADLINE_MIN_S = 0.5  # the hang run's least stage deadline
@@ -3512,6 +3638,7 @@ def main() -> int:
     badwords = badwords_phase(rows, work, geometry)
     native = native_phase(rows, work, oracle, native_info)
     checkpoint = checkpoint_phase(rows, work, cli_run, known_keys)
+    mesh = mesh_phase(rows, work, oracle, summary)
     t0 = time.perf_counter()
     faults = fault_phase(rows, work, checked)
     print(f"fault phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3539,6 +3666,8 @@ def main() -> int:
             "launches_by_path": {"chain": summary["chain"]["launches"][k],
                                  "badwords": badwords["whole_corpus"]["launches"][k],
                                  "danish_badwords": badwords["danish"]["launches"][k]},
+            # The two-shard mesh run over the subset, shard by shard.
+            "launches_by_shard": [s[k] for s in mesh["meshes"]["mesh_2"]["shard_launches"]],
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -3552,7 +3681,7 @@ def main() -> int:
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
                    "main_path": summary, "profile": profiled, "cli": cli_run,
                    "auto_geometry": geometry, "badwords": badwords, "native": native,
-                   "checkpoint": checkpoint, "fault_phase": faults,
+                   "checkpoint": checkpoint, "mesh": mesh, "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

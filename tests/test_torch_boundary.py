@@ -4,7 +4,8 @@
   ``kernel_ab.py`` finds no ``import jax`` and no import of
   ``textblaster_tpu``.
 * A subprocess with ``sys.modules["jax"] = None`` imports the port and runs
-  one tiny batch through ``CompiledPipeline(device="cpu")``.
+  one tiny batch through ``CompiledPipeline(device="cpu")``, and the same
+  documents over a two-entry CPU mesh (``parallel/mesh.py``).
 * Without CUDA, an entry point called without ``device=`` raises.
 """
 
@@ -44,12 +45,14 @@ def _imported_roots(path):
 
 
 def test_no_jax_or_jax_package_imports():
-    seen = 0
+    seen = set()
     for path in _sources():
-        seen += 1
+        seen.add(os.path.relpath(path, ROOT))
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
-    assert seen > 20
+    assert len(seen) > 20
+    assert {"textblaster_tpu_torch/parallel/mesh.py",
+            "textblaster_tpu_torch/graft_entry.py"} <= seen
 
 
 def test_runs_a_batch_with_jax_blocked():
@@ -70,6 +73,13 @@ def test_runs_a_batch_with_jax_blocked():
         outs = list(pipe.process_chunk(docs))
         assert len(outs) == 3, outs
         assert set(pipe.counters["batches_by_bucket"]) == {512}, pipe.counters
+        from textblaster_tpu_torch.parallel.mesh import data_mesh
+
+        mesh = CompiledPipeline(cfg, buckets=(512,), batch_size=4,
+                                mesh=data_mesh(["cpu", "cpu"]))
+        docs = [TextDocument(id=str(i), source="s", content=text[: 100 + 40 * i])
+                for i in range(3)]
+        assert sorted(o.kind for o in mesh.process_chunk(docs)) == sorted(o.kind for o in outs)
         assert not any(m == "jax" or m.startswith("jax.") or m.startswith("textblaster_tpu.")
                        for m, v in sys.modules.items() if v is not None)
         print("OK", sorted(o.kind for o in outs))

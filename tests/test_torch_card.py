@@ -648,3 +648,71 @@ def test_run_batch_device_span_lies_inside_its_host_span(cuda, traced):
         assert h["ts"] - 2 <= d["ts"] and d["ts"] + d["dur"] <= h["ts"] + h["dur"] + 2, (h, d)
     lanes = {e["args"]["name"]: e["tid"] for e in events if e["name"] == "thread_name"}
     assert {d["tid"] for d in dev} == {lanes["device"]}
+
+
+# --- the data mesh on the card ----------------------------------------------------
+
+
+def _mesh_batch(cuda):
+    import os
+
+    from textblaster_tpu_torch.config.pipeline import load_pipeline_config
+    from textblaster_tpu_torch.data_model import TextDocument
+    from textblaster_tpu_torch.ops.packing import pack_documents
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_pipeline_config(os.path.join(root, "configs/pipeline_config_offline.yaml"))
+    docs = [TextDocument(id=i, source="t", content=t) for i, t in _card_corpus(60)
+            if len(t) < 2000 and max(map(ord, t), default=0) < 0x10000]
+    return cfg, pack_documents(docs[:16], batch_size=16, max_len=2048)
+
+
+def test_two_shard_mesh_equals_one_device(cuda, traced, monkeypatch):
+    """``[cuda:0, cuda:0]`` (two shards on two streams of the card): every
+    phase's stats dict equals the single-device one, every kernel the
+    single device launched was launched by each shard, each shard has its
+    ``device_batch`` span, and the device seconds are the longer shard's."""
+    from textblaster_tpu_torch.ops.pipeline import CompiledPipeline
+    from textblaster_tpu_torch.parallel.mesh import data_mesh
+
+    monkeypatch.setenv("TEXTBLAST_WIRE", "cp32")  # the mesh's wire, on both
+    cfg, batch = _mesh_batch(cuda)
+    one = CompiledPipeline(cfg, buckets=(512, 2048), batch_size=16, device=cuda)
+    mesh = CompiledPipeline(cfg, buckets=(512, 2048), batch_size=16,
+                            mesh=data_mesh([cuda, cuda]))
+    assert not mesh.wire_u16 and len(set(mesh._mesh_streams)) == 2
+    for phase in range(len(one.phases)):
+        want, _, _ = one.run_batch(batch, phase)
+        got, _, dev_s = mesh.run_batch(batch, phase)
+        assert sorted(got) == sorted(want) and dev_s > 0.0
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (phase, k)
+    per_shard = mesh.counters["shard_launches"]
+    assert len(per_shard) == 2
+    for k, n in one.counters["launches"].items():
+        if n:
+            assert all(s[k] > 0 for s in per_shard), (k, per_shard)
+        assert mesh.counters["launches"][k] == sum(s[k] for s in per_shard)
+    assert mesh.counters["batches_by_bucket"] == {2048: len(one.phases)}
+    spans = [e for e in traced.drain() if e["name"] == "device_batch" and "shard" in e["args"]]
+    assert sorted(e["args"]["shard"] for e in spans) == sorted([0, 1] * len(one.phases))
+
+
+def test_mesh_devices_keep_one_copy_of_each_table(cuda):
+    """The constant tables are cached per physical device: ``cuda`` and
+    ``cuda:0`` are one copy, and every visible GPU keeps its own."""
+    from textblaster_tpu_torch.ops import badwords
+    from textblaster_tpu_torch.ops.device import class_table, const_i32, device_key, lower_table
+    from textblaster_tpu_torch.ops.langid_device import table_q
+
+    i = torch.cuda.current_device()
+    for get in (class_table, lower_table, table_q, lambda d: const_i32([1, 2, 3], d)):
+        assert get("cuda") is get(f"cuda:{i}") is get(torch.device("cuda", i))
+    tables = badwords.BadwordTables.build(["foo", "bar baz"], check_boundaries=True)
+    assert badwords._tables_on(tables, torch.device("cuda")) is badwords._tables_on(
+        tables, torch.device("cuda", i))
+    devices = [torch.device("cuda", d) for d in range(torch.cuda.device_count())]
+    copies = [class_table(d) for d in devices] + [table_q(d) for d in devices]
+    assert len({t.data_ptr() for t in copies}) == 2 * len(devices)
+    assert [t.device for t in copies] == devices * 2
+    assert {device_key(d) for d in devices} == {str(d) for d in devices}

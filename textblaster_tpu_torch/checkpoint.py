@@ -57,7 +57,8 @@ from .resilience.retry import RetryPolicy
 from .ops.geometry import DeviceGeometry
 from .ops.pipeline import process_documents_device, resolve_device
 from .pipeline_builder import build_pipeline_from_config
-from .runner import _build_pipeline, _calibrate
+from .parallel.mesh import DataMesh
+from .runner import _build_pipeline, _calibrate, run_mesh
 from .utils.events import EVENTS
 from .utils.metrics import METRICS
 
@@ -319,6 +320,7 @@ def run_checkpointed(
     device_batch: Optional[int] = None,
     buckets=None,
     auto_geometry: bool = False,
+    mesh: Optional[DataMesh] = None,
     progress: Optional[Callable[[AggregationResult], None]] = None,
     stop_after_chunks: Optional[int] = None,
     errors_file: Optional[str] = None,
@@ -327,7 +329,12 @@ def run_checkpointed(
 
     ``backend`` is ``device`` (the port's device pipeline on ``device``,
     ``cuda`` unless the caller asks for the CPU) or ``host`` (the host
-    oracle), as for :func:`~textblaster_tpu_torch.runner.run_pipeline`.
+    oracle), as for :func:`~textblaster_tpu_torch.runner.run_pipeline`,
+    whose default ``mesh`` it takes too.  The cursor records the geometry
+    of the pipeline as built (a mesh's rounding included), and a resume
+    under a mesh rounds a recorded geometry again, so a run on a mesh and
+    its resume on one device (or the other way round) write the same files
+    wherever the rounding leaves the geometry as it was.
 
     ``stop_after_chunks`` aborts the run after N committed chunks — the fault
     -injection hook the crash/resume tests drive (see also the finer-grained
@@ -394,9 +401,10 @@ def run_checkpointed(
             dead_rows.append(read_error_row(err))
 
     if backend == "device":
+        mesh = run_mesh(device, mesh)
         pipeline = _device_pipeline(
             config, ckpt_dir, state, resumed, device, device_batch, buckets,
-            auto_geometry,
+            auto_geometry, mesh,
         )
     elif backend != "host":
         raise ValueError(f"unknown backend {backend!r}")
@@ -445,8 +453,10 @@ def run_checkpointed(
                 # stream, then replay the head ahead of the rest.  The
                 # result is recorded in the cursor so a resume dispatches
                 # identical batches.
-                geometry, raw = _calibrate(raw, device)
-                pipeline = _build_pipeline(config, buckets, device_batch, device, geometry)
+                geometry, raw = _calibrate(raw, device if mesh is None else mesh.devices[0])
+                pipeline = _build_pipeline(
+                    config, buckets, device_batch, device, geometry, mesh
+                )
             # Recorded from the constructed pipeline so the resume check
             # compares like with like.
             state.geometry = pipeline.geometry.to_dict()
@@ -556,7 +566,8 @@ def run_checkpointed(
 
 
 def _device_pipeline(
-    config, ckpt_dir, state, resumed, device, device_batch, buckets, auto_geometry
+    config, ckpt_dir, state, resumed, device, device_batch, buckets, auto_geometry,
+    mesh=None,
 ):
     """The one pipeline reused across every chunk, or None when a fresh
     ``auto_geometry`` run must calibrate it from the stream first.
@@ -580,8 +591,9 @@ def _device_pipeline(
                     f"{recorded.describe()}); resume without the flag, "
                     "or remove the checkpoint directory to start over"
                 )
-            return _build_pipeline(config, None, None, device, recorded)
-        candidate = _build_pipeline(config, buckets, device_batch, device)
+            # Under a mesh the recorded geometry is rounded again.
+            return _build_pipeline(config, None, None, device, recorded, mesh)
+        candidate = _build_pipeline(config, buckets, device_batch, device, mesh=mesh)
         if candidate.geometry.fingerprint() != recorded.fingerprint():
             hint = (
                 "pass --auto-geometry again"
@@ -605,6 +617,7 @@ def _device_pipeline(
             "to start over"
         )
     if auto_geometry:
-        resolve_device(device)  # fails without CUDA before the reader starts
+        # Fails without CUDA before the reader starts.
+        resolve_device(device if mesh is None else mesh.devices[0])
         return None
-    return _build_pipeline(config, buckets, device_batch, device)
+    return _build_pipeline(config, buckets, device_batch, device, mesh=mesh)

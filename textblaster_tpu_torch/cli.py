@@ -10,7 +10,9 @@ The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
 same way and refused in
 the same combinations, plus ``--backend device|host`` and ``--device cuda|cpu``
 (``cuda`` is the default; the run fails rather than fall back when CUDA is
-absent).  A run prints the JAX package's summary line and the tail lines
+absent).  Without ``--device``, a host with more than one visible GPU runs
+a mesh of all of them (``CUDA_VISIBLE_DEVICES`` chooses them), as the JAX
+CLI meshes every device of a host; ``--device cuda`` names one.  A run prints the JAX package's summary line and the tail lines
 whose layers the port has (dead-letter rows, the breaker warning, host
 fallbacks, read errors; unless ``--quiet``, the stage, occupancy and
 funnel summaries, the trace, journal and SLO lines, with
@@ -89,8 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                           "errored rows appear in neither output)")
     run.add_argument("--backend", choices=("device", "host"), default="device",
                      help="The device pipeline (device) or the host oracle (host)")
-    run.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                     help="Where the device pipeline runs (default cuda)")
+    run.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                     help="Where the device pipeline runs (default cuda: a mesh "
+                          "of every visible GPU when there is more than one)")
     run.add_argument("--batch-size", type=int, default=1024,
                      help="Parquet read batch size")
     run.add_argument("--buckets", default=None,
@@ -340,7 +343,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         "steps": [s.type for s in config.pipeline],
         "input_file": args.input_file,
         "backend": args.backend,
-        "device": args.device,
+        "device": args.device or "cuda",
         "buckets": list(buckets) if buckets else None,
         "device_batch": args.device_batch,
         "auto_geometry": bool(args.auto_geometry),
@@ -375,7 +378,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
     fallbacks_before = METRICS.get("worker_host_fallback_total")
     try:
         with device_profile(
-            args.trace_device, args.device if args.backend == "device" else "host"
+            args.trace_device, (args.device or "cuda") if args.backend == "device" else "host"
         ):
             if args.checkpoint_dir:
                 progress = _Progress(enabled=not args.quiet)

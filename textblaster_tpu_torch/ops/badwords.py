@@ -47,7 +47,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .device import ALNUM, classify, lowered
+from .device import ALNUM, classify, device_key, lowered
 from .stats import _first_col, _pad_cols, _poly_hash, _shift_l, _shift_r, _to_i32
 
 __all__ = [
@@ -262,30 +262,32 @@ class BadwordTables(NamedTuple):
         )
 
 
-#: Device copies of the tables: ``(id(tables), device) -> (tables, [(t1,
-#: t2), ...])``.  The entry holds the tables themselves, so the id is not
-#: reused while the entry lives; each table is uploaded once per device.
-_DEVICE_TABLES: "OrderedDict[Tuple[int, str], tuple]" = OrderedDict()
-_DEVICE_TABLES_MAX = 32
+#: Device copies of the tables, one LRU a device (so that the devices of a
+#: mesh keep theirs): ``device -> {id(tables): (tables, [(t1, t2), ...])}``.
+#: The entry holds the tables themselves, so the id is not reused while the
+#: entry lives; each table is uploaded once per device.
+_DEVICE_TABLES: "Dict[str, OrderedDict[int, tuple]]" = {}
+_DEVICE_TABLES_MAX = 32  # table sets a device
 _DEVICE_TABLES_LOCK = threading.Lock()
 
 
 def _tables_on(tables: BadwordTables, device: torch.device):
-    key = (id(tables), str(device))
+    dev = device_key(device)
     with _DEVICE_TABLES_LOCK:
-        hit = _DEVICE_TABLES.get(key)
+        cache = _DEVICE_TABLES.setdefault(dev, OrderedDict())
+        hit = cache.get(id(tables))
         if hit is not None and hit[0] is tables:
-            _DEVICE_TABLES.move_to_end(key)
+            cache.move_to_end(id(tables))
             return hit[1]
     pairs = [
-        (torch.from_numpy(t1).to(device), torch.from_numpy(t2).to(device))
+        (torch.from_numpy(t1).to(dev), torch.from_numpy(t2).to(dev))
         for t1, t2 in zip(tables.tables1, tables.tables2)
     ]
     with _DEVICE_TABLES_LOCK:
-        _DEVICE_TABLES[key] = (tables, pairs)
-        _DEVICE_TABLES.move_to_end(key)
-        while len(_DEVICE_TABLES) > _DEVICE_TABLES_MAX:
-            _DEVICE_TABLES.popitem(last=False)
+        cache[id(tables)] = (tables, pairs)
+        cache.move_to_end(id(tables))
+        while len(cache) > _DEVICE_TABLES_MAX:
+            cache.popitem(last=False)
     return pairs
 
 

@@ -81,7 +81,18 @@ def _lower_table_np() -> np.ndarray:
     return table
 
 
-@lru_cache(maxsize=8)
+def device_key(device) -> str:
+    """The key of ``device`` in the per-device caches: one per physical
+    device, so ``cuda`` (the current device) and ``cuda:0`` are one key."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+# Unbounded in devices: every device of a mesh keeps its copy of each table
+# (two kinds a device).
+@lru_cache(maxsize=None)
 def _table_on(kind: str, device: str) -> torch.Tensor:
     arr = _class_table_np() if kind == "class" else _lower_table_np()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
@@ -89,13 +100,13 @@ def _table_on(kind: str, device: str) -> torch.Tensor:
 
 def class_table(device) -> torch.Tensor:
     """The host classification table (``[0x40000] uint8``) on ``device``."""
-    return _table_on("class", str(torch.device(device)))
+    return _table_on("class", device_key(device))
 
 
 def lower_table(device) -> torch.Tensor:
     """Codepoint -> lowercase codepoint (identity where ``str.lower`` is not
     a single char), ``[0x40000] int32`` on ``device``."""
-    return _table_on("lower", str(torch.device(device)))
+    return _table_on("lower", device_key(device))
 
 
 def _gather_clamped(table: torch.Tensor, cps: torch.Tensor) -> torch.Tensor:
@@ -124,15 +135,22 @@ def utf8_width(cps: torch.Tensor) -> torch.Tensor:
     return w.to(torch.int32)
 
 
-@lru_cache(maxsize=64)
-def _const_on(data: bytes, device: str) -> torch.Tensor:
-    return torch.from_numpy(np.frombuffer(data, dtype=np.int32).copy()).to(device)
+@lru_cache(maxsize=None)
+def _consts_on(device: str):
+    """``device``'s own cache of constants (64 of them), so that the
+    devices of a mesh do not evict each other's."""
+
+    @lru_cache(maxsize=64)
+    def const_on(data: bytes) -> torch.Tensor:
+        return torch.from_numpy(np.frombuffer(data, dtype=np.int32).copy()).to(device)
+
+    return const_on
 
 
 def const_i32(values, device) -> torch.Tensor:
     """A small constant int32 vector on ``device`` (cached per device)."""
     arr = np.ascontiguousarray(np.asarray(values, dtype=np.int32))
-    return _const_on(arr.tobytes(), str(torch.device(device)))
+    return _consts_on(device_key(device))(arr.tobytes())
 
 
 def isin_sorted(cps: torch.Tensor, sorted_vals) -> torch.Tensor:

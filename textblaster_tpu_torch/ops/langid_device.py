@@ -18,13 +18,13 @@ import torch
 
 from ..models.langid import TABLE_SIZE, get_model
 from .compact import compact
-from .device import ALPHA, classify, lowered
+from .device import ALPHA, classify, device_key, lowered
 from .stats import _poly_hash, _shift_l, _shift_r
 
 __all__ = ["langid_scores", "table_q"]
 
 
-@lru_cache(maxsize=4)
+@lru_cache(maxsize=None)  # one copy on every device of a mesh
 def _table_q_on(device: str) -> torch.Tensor:
     return torch.from_numpy(get_model().table_q).to(device)
 
@@ -32,7 +32,7 @@ def _table_q_on(device: str) -> torch.Tensor:
 def table_q(device) -> torch.Tensor:
     """The host model's quantized table (``[TABLE_SIZE, 5] int32``) on
     ``device``."""
-    return _table_q_on(str(torch.device(device)))
+    return _table_q_on(device_key(device))
 
 
 def langid_scores(

@@ -38,7 +38,16 @@ its documents on the host oracle, and a circuit breaker sends the run to
 the host oracle after ``breaker_threshold`` batches in a row fell that far.
 Every re-attempt runs on the dispatch thread, so launches stay on one
 thread and one stream.  A fatal error (a deterministic one, or a sticky
-CUDA error) propagates.  Not ported yet: meshes and warmup.
+CUDA error) propagates.  Not ported yet: warmup.
+
+A ``mesh`` (:func:`..parallel.mesh.data_mesh`) runs each batch as row
+shards, one a mesh entry, with the JAX package's mesh semantics: every
+batch size is rounded to a multiple of the entries, the wire is int32,
+the ladder has no split rung, there is no overlap window and no host
+tails; phases stay on.  :meth:`CompiledPipeline.run_batch` uploads every
+shard to its device and enqueues its phase function on that entry's
+stream before it waits on any, then gathers the shards' stats in shard
+order: the same dict one single-device call gives on the whole batch.
 
 C4BadWordsFilter runs on the device wherever the JAX package runs it there
 (:func:`_step_on_device`): its default language has a local word list that
@@ -121,6 +130,7 @@ from ..utils.profiler import PROFILER, program_key
 from ..utils.telemetry import TELEMETRY
 from ..utils.trace import KERNEL_SPANS, TRACER, DeviceClock
 from .badwords import badwords_matches_multi
+from ..parallel.mesh import DataMesh, gather_stats, shard_rows, to_device
 from .geometry import DeviceGeometry
 from .langid_device import langid_scores
 from . import scan, sort
@@ -458,18 +468,33 @@ class CompiledPipeline:
         batch_size: Optional[int] = None,
         device=None,
         geometry: Optional[DeviceGeometry] = None,
+        mesh: Optional[DataMesh] = None,
+        phase_split: bool = True,
     ) -> None:
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("CompiledPipeline: pass a device or a mesh, not both")
+            # Kernels, streams, the cost pass and the lane budget's device
+            # type: the mesh's first entry.
+            self.device = resolve_device(mesh.devices[0])
+        else:
+            self.device = resolve_device(device)
         if geometry is not None:
             # A calibrated (or checkpoint-recorded) geometry supersedes the
-            # buckets/batch_size knobs.
+            # buckets/batch_size knobs; mesh runs need every per-bucket
+            # batch divisible by the entries.
+            if mesh is not None:
+                geometry = geometry.with_batch_multiple(mesh.size)
             self.geometry = geometry
         else:
             bs = tuple(sorted(buckets))
             default = default_batch_size(bs, self.device)
             if not batch_size:  # None or 0, as the CLI passes them
                 batch_size = default
+            if mesh is not None:
+                batch_size = max(mesh.size, (batch_size // mesh.size) * mesh.size)
             src = "default" if batch_size == default else "explicit"
             self.geometry = DeviceGeometry.uniform(bs, batch_size, source=src)
         self.buckets = self.geometry.buckets
@@ -504,9 +529,11 @@ class CompiledPipeline:
             s.type in _WORD_TABLE_STEPS for s in self.device_steps
         )
 
+        # Phases stay on under a mesh, as the single-controller JAX mesh
+        # keeps them; ``phase_split=False`` runs one program of every step.
         self.phases = _split_phases(self.device_steps)
         # A content-rewriting step must sit in the final phase.
-        if any(
+        if not phase_split or any(
             self.device_steps[i].type == "C4QualityFilter"
             for ph in self.phases[:-1]
             for i in ph
@@ -516,8 +543,9 @@ class CompiledPipeline:
         # Wire format: BMP code points fit uint16 exactly, which halves the
         # upload; documents holding supplementary-plane characters (emoji
         # etc.) are routed to the host oracle instead (process_chunk), so
-        # decisions stay bit-identical and the route is counted.
-        self.wire_u16 = _wire_u16(self.device)
+        # decisions stay bit-identical and the route is counted.  Meshes
+        # keep int32, as the JAX package's do.
+        self.wire_u16 = mesh is None and _wire_u16(self.device)
 
         # Overlapped host pipeline (see process_chunk): depth of the device
         # in-flight window and the pack-stage thread pool.
@@ -543,7 +571,22 @@ class CompiledPipeline:
         # Maps the batches' CUDA events onto the trace clock; armed by the
         # first batch run with a trace armed (run_batch).
         self.device_clock: Optional[DeviceClock] = None
+        # Under a mesh: each mesh device's clock, anchored on the stream of
+        # its first entry.
+        self._mesh_clocks: Dict[str, DeviceClock] = {}
         self._batch_seq = 0
+        if mesh is not None:
+            # Launches by kernel of each shard (their sum is "launches").
+            self.counters["shard_launches"] = [
+                {k: 0 for k in _launch_counts()} for _ in mesh.devices
+            ]
+            # One stream an entry: two entries on one card run on two.
+            self._mesh_streams = (
+                [torch.cuda.Stream(device=d) for d in mesh.devices]
+                if self.device.type == "cuda" else None
+            )
+            # Each shard's kernel spans of the batch being dispatched.
+            self._shard_spans: List[list] = []
 
         if self.device.type == "cuda":
             # Build and load the kernels now, so that a failure raises here
@@ -741,7 +784,7 @@ class CompiledPipeline:
             full = self.geometry.batch_for(length)
             variants = [full]
             sub = self._split_rows(full)
-            if include_split_rows and self._split_retry and sub != full:
+            if include_split_rows and self._split_retry and self.mesh is None and sub != full:
                 variants.append(sub)
             for phase in range(len(self.phases)):
                 jobs.extend((length, phase, rows) for rows in variants)
@@ -810,14 +853,24 @@ class CompiledPipeline:
             dev_s if self.device.type == "cuda" else host_s,
         )
 
-    def dispatch_batch(self, batch: PackedBatch, phase: int = 0) -> Dict[str, torch.Tensor]:
+    def dispatch_batch(
+        self, batch: PackedBatch, phase: int = 0, streams=None
+    ) -> Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]:
         """Upload one packed batch and run its (bucket, phase) function on
         the current stream; the returned stats stay on the device.  The
         upload is uint16 under :attr:`wire_u16` (widened to int32 on the
         device before the function), int32 otherwise.  The
         ``device.execute`` fault seam fires first, inside a watchdog beat
         when the watchdog is armed, so an injected hang is rescued on the
-        thread that hangs."""
+        thread that hangs.
+
+        Under a mesh: one stats dict a shard, in shard order, each on its
+        entry's device; every shard is uploaded and its function enqueued
+        (on ``streams[i]``, else its device's current stream) before the
+        next shard's, and nothing here waits on a shard but the phase
+        functions' own gates.  The batch counts once in the batch, row and
+        upload counters; each shard's launches count in
+        ``counters["shard_launches"]`` and, summed, in ``"launches"``."""
         with WATCHDOG.stage_beat("device_fetch") if WATCHDOG.enabled else nullcontext():
             FAULTS.fire("device.execute")
         fn = self._fn_for(batch.max_len, phase)
@@ -836,27 +889,60 @@ class CompiledPipeline:
             cps_h = torch.from_numpy(np.ascontiguousarray(cps, dtype=np.int32))
         lengths = torch.from_numpy(np.ascontiguousarray(batch.lengths, dtype=np.int32))
         self.counters["upload_bytes"] += cps_h.nbytes + lengths.nbytes
+        buckets = self.counters["batches_by_bucket"]
+        buckets[batch.max_len] = buckets.get(batch.max_len, 0) + 1
+        record_occupancy(batch)
+        self.counters["device_rows"] += len(batch.docs)
+        if self.mesh is not None:
+            return self._dispatch_shards(fn, cps_h, lengths, streams)
         if self.device.type == "cuda":
-            cps_d = cps_h.pin_memory().to(self.device, non_blocking=True)
+            cps_d = to_device(cps_h, self.device)
             lengths = lengths.to(self.device)
         else:
             cps_d = cps_h
         # The widen is the device's first op; every function computes in
         # int32.
         cps_d = cps_d.to(torch.int32) if self.wire_u16 else cps_d
-        buckets = self.counters["batches_by_bucket"]
-        buckets[batch.max_len] = buckets.get(batch.max_len, 0) + 1
-        record_occupancy(batch)
-        self.counters["device_rows"] += len(batch.docs)
         before = _launch_counts()
         try:
             return fn(cps_d, lengths)
         finally:
             # Also the launches of a function that failed part-way (an
             # out-of-memory attempt the ladder retries).
-            launches = self.counters["launches"]
-            for k, n in _launch_counts().items():
-                launches[k] += n - before[k]
+            self._count_launches(before, self.counters["launches"])
+
+    @staticmethod
+    def _count_launches(before: Dict[str, int], *into: Dict[str, int]) -> None:
+        """Add the launches since ``before`` to each of ``into``."""
+        for k, n in _launch_counts().items():
+            for d in into:
+                d[k] += n - before[k]
+
+    def _dispatch_shards(self, fn, cps_h, lengths, streams) -> List[Dict[str, torch.Tensor]]:
+        """:meth:`dispatch_batch` under the mesh: shard *i*'s rows to entry
+        *i*'s device and its function on ``streams[i]``, shard by shard.
+        With ``--trace-device`` armed, each shard's kernel spans go to
+        ``_shard_spans[i]`` (resolved with its device's clock)."""
+        out: List[Dict[str, torch.Tensor]] = []
+        self._shard_spans = []
+        for i, (dev, (lo, hi)) in enumerate(
+            zip(self.mesh.devices, shard_rows(self.mesh, cps_h.shape[0]))
+        ):
+            before = _launch_counts()
+            try:
+                if dev.type == "cuda":
+                    s = streams[i] if streams is not None else torch.cuda.current_stream(dev)
+                    with torch.cuda.device(dev), torch.cuda.stream(s):
+                        out.append(fn(to_device(cps_h[lo:hi], dev),
+                                      to_device(lengths[lo:hi], dev)))
+                else:
+                    out.append(fn(cps_h[lo:hi], lengths[lo:hi]))
+            finally:
+                self._count_launches(before, self.counters["launches"],
+                                     self.counters["shard_launches"][i])
+                if KERNEL_SPANS.enabled:
+                    self._shard_spans.append(KERNEL_SPANS.take_pending())
+        return out
 
     @staticmethod
     def fetch(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -877,7 +963,11 @@ class CompiledPipeline:
         only (with the watchdog armed, a poll of the event bounded by the
         ``device_fetch`` deadline comes first).  With a trace armed, the
         two events become the batch's device span after that wait
-        (:meth:`_device_spans`).  On the CPU the device seconds are 0."""
+        (:meth:`_device_spans`).  On the CPU the device seconds are 0.
+
+        Under a mesh see :meth:`_run_mesh_batch`."""
+        if self.mesh is not None:
+            return self._run_mesh_batch(batch, phase)
         t0 = time.perf_counter()
         args = {"bucket": batch.max_len, "rows": batch.batch_size, "phase": phase}
         if self.device.type != "cuda":
@@ -910,16 +1000,80 @@ class CompiledPipeline:
                         WATCHDOG.wait_device_ready("device_fetch", (end,))
                 end.synchronize()
             if traced:
-                self._device_spans(s, start, end, args)
+                self._device_spans(self.device_clock, s, start, end, args)
         stats = {k: v.numpy() for k, v in host.items()}
         return stats, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
-    def _device_spans(self, stream, start, end, args) -> None:
-        """One batch's device spans, after its ``end.synchronize()``: the
-        ``device_batch`` span on the trace's ``device`` track, and under
-        ``--trace-device`` the batch's and its kernels' spans.  A CUDA
-        event that cannot be read raises."""
-        clock = self.device_clock
+    def _run_mesh_batch(self, batch: PackedBatch, phase: int):
+        """:meth:`run_batch` under the mesh: every shard's upload and
+        function enqueued on its entry's stream (:meth:`dispatch_batch`),
+        each bracketed by two CUDA events on that stream, then the
+        non-blocking downloads, then the waits, then the shards' stats
+        concatenated in shard order.  The device seconds are the longest
+        shard's span (events on two devices cannot be subtracted); with a
+        trace armed each shard's span is a ``device_batch`` span tagged
+        with its shard index, on its device's clock."""
+        t0 = time.perf_counter()
+        args = {"bucket": batch.max_len, "rows": batch.batch_size, "phase": phase}
+        if self.device.type != "cuda":
+            with TRACER.span("device_dispatch", args):
+                shards = self.dispatch_batch(batch, phase)
+                stats = gather_stats([self.fetch(sh) for sh in shards])
+            return stats, time.perf_counter() - t0, 0.0
+        traced = TRACER.enabled or KERNEL_SPANS.enabled
+        if traced:
+            self._batch_seq += 1
+            args["batch"] = self._batch_seq
+        devs, streams = self.mesh.devices, self._mesh_streams
+        with TRACER.span("device_dispatch", args):
+            if traced:
+                self._anchor_mesh_clocks()
+            starts, ends = [], []
+            for dev, s in zip(devs, streams):
+                with torch.cuda.device(dev):
+                    starts.append(torch.cuda.Event(enable_timing=True))
+                    ends.append(torch.cuda.Event(enable_timing=True))
+                    starts[-1].record(s)
+            shards = self.dispatch_batch(batch, phase, streams)
+            hosts = []
+            for dev, s, sh, end in zip(devs, streams, shards, ends):
+                with torch.cuda.device(dev), torch.cuda.stream(s):
+                    hosts.append({k: v.to("cpu", non_blocking=True) for k, v in sh.items()})
+                    end.record(s)
+            del shards
+            if WATCHDOG.enabled:
+                with WATCHDOG.stage_beat("device_fetch"):
+                    WATCHDOG.wait_device_ready("device_fetch", tuple(ends))
+            for end in ends:
+                end.synchronize()
+        if traced:
+            spans = self._shard_spans or [None] * len(devs)
+            for i, (dev, s) in enumerate(zip(devs, streams)):
+                self._device_spans(self._mesh_clocks[str(dev)], s, starts[i], ends[i],
+                                   {**args, "shard": i}, spans[i])
+        stats = gather_stats([{k: v.numpy() for k, v in h.items()} for h in hosts])
+        dev_s = max(a.elapsed_time(b) for a, b in zip(starts, ends)) / 1e3
+        return stats, time.perf_counter() - t0, dev_s
+
+    def _anchor_mesh_clocks(self) -> None:
+        """A :class:`DeviceClock` for each mesh device that has none (or
+        one of an earlier trace), anchored on the stream of the device's
+        first entry after a synchronize of it."""
+        for dev, s in zip(self.mesh.devices, self._mesh_streams):
+            clock = self._mesh_clocks.get(str(dev))
+            if clock is None or not clock.current():
+                with torch.cuda.device(dev):
+                    s.synchronize()
+                    clock = self._mesh_clocks[str(dev)] = DeviceClock()
+                    clock.anchor(s)
+
+    def _device_spans(self, clock, stream, start, end, args, pending=None) -> None:
+        """One batch's (or shard's) device spans, after its
+        ``end.synchronize()``: the ``device_batch`` span on the trace's
+        ``device`` track, and under ``--trace-device`` the batch's and its
+        kernels' spans (``pending``: a shard's, from
+        ``KERNEL_SPANS.take_pending``).  A CUDA event that cannot be read
+        raises."""
         clock.settle(stream)
         # Between the anchors before and after the batch: the device
         # timer's drift over the batch cancels (a span mapped from the one
@@ -929,7 +1083,7 @@ class CompiledPipeline:
             ts = span.to_us(start)
             TRACER.device_span("device_batch", ts, span.to_us(end) - ts, args)
         if KERNEL_SPANS.enabled:
-            KERNEL_SPANS.resolve(span, start, end, args)
+            KERNEL_SPANS.resolve(span, start, end, args, pending)
 
     # --- degradation ladder -------------------------------------------------
 
@@ -1134,8 +1288,9 @@ class CompiledPipeline:
         fell_to_host = False
         outcomes: List[ProcessingOutcome] = []
         survivors: List[TextDocument] = []
-        if self._split_retry and len(batch.docs) > 1:
-            # Split rung: both halves pack to the same padded row count.
+        if self._split_retry and self.mesh is None and len(batch.docs) > 1:
+            # Split rung: both halves pack to the same padded row count (a
+            # mesh has none, as in the JAX package: retry, then host).
             METRICS.inc("resilience_ladder_split_total")
             TRACER.instant(
                 "ladder_split", {"bucket": batch.max_len, "phase": phase}
@@ -1820,8 +1975,11 @@ class CompiledPipeline:
         degradation ladder (:meth:`_execute_packed`) takes it.
         """
         debug = os.environ.get("TEXTBLAST_PHASE_DEBUG") == "1"
+        # A mesh has no window, as in the JAX package.
         overlapped = (
-            self._overlap.enabled and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1"
+            self._overlap.enabled
+            and os.environ.get("TEXTBLAST_NO_OVERLAP") != "1"
+            and self.mesh is None
         )
         depth = max(1, self._overlap.pipeline_depth) if overlapped else 1
         counters = self.counters
@@ -1868,9 +2026,10 @@ class CompiledPipeline:
                 # carry the expensive statistics and the (bit-exact) host
                 # oracle wins below ~half a batch.  TEXTBLAST_HOST_TAILS=off
                 # keeps tails on the device (the parity suites use it so
-                # the device decides every doc).  Per bucket: the cutoff
-                # tracks each bucket's own row budget.
-                if os.environ.get("TEXTBLAST_HOST_TAILS") != "off":
+                # the device decides every doc), and so does a mesh (shard
+                # accounting, as in the JAX package).  Per bucket: the
+                # cutoff tracks each bucket's own row budget.
+                if self.mesh is None and os.environ.get("TEXTBLAST_HOST_TAILS") != "off":
                     div = 16 if phase == 0 else 2
                     host_tail_max = {
                         b: self.geometry.batch_for(b) // div
@@ -1994,6 +2153,8 @@ class CompiledPipeline:
                 # The device clock's re-anchors so far: the drift between
                 # the device's timer and the trace clock.
                 TRACER.instant("device_clock", self.device_clock.stats())
+            for dev, clock in self._mesh_clocks.items():
+                TRACER.instant("device_clock", {**clock.stats(), "device": dev})
 
 
 class _DispatchThread:
@@ -2129,6 +2290,7 @@ def process_documents_device(
     pipeline: Optional[CompiledPipeline] = None,
     device=None,
     geometry: Optional[DeviceGeometry] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> Iterator[ProcessingOutcome]:
     """Device-backed processing loop: packs the stream into bucketed batches,
     runs the device pipeline phase by phase, and yields outcomes.
@@ -2138,11 +2300,12 @@ def process_documents_device(
     for the JAX package.  Pass a prebuilt ``pipeline`` to reuse it (and to
     read its :attr:`~CompiledPipeline.counters` afterwards; the
     checkpointed runner processes one chunk per call).  A ``geometry``
-    (calibrated or recorded) supersedes ``buckets`` / ``device_batch``."""
+    (calibrated or recorded) supersedes ``buckets`` / ``device_batch``; a
+    ``mesh`` shards every batch's rows over its entries."""
     if pipeline is None:
         pipeline = CompiledPipeline(
             config, buckets=buckets, batch_size=device_batch, device=device,
-            geometry=geometry,
+            geometry=geometry, mesh=mesh,
         )
     # Nothing to warm up: the kernels were built with the pipeline, so it is
     # ready (the JAX package's maybe_warmup sets the gauge alike when it

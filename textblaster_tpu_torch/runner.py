@@ -4,7 +4,9 @@ The port's counterpart of the device branch of
 ``textblaster_tpu/parallel/runner.py``.  Two backends share the
 orchestration: ``device`` (the port's device pipeline on ``cuda``, or on
 the CPU when asked) and ``host`` (the host oracle executor, one document at
-a time — the parity baseline).
+a time — the parity baseline).  As the JAX runner meshes every device of a
+host, a run that names no device shards its batches over every visible GPU
+when there is more than one (``CUDA_VISIBLE_DEVICES`` chooses them).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import sys
 import time
 from itertools import chain, islice
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import torch
 
 from .config.pipeline import PipelineConfig
 from .errors import PipelineError
@@ -27,6 +31,7 @@ from .orchestration import (
 from .ops.geometry import CALIBRATION_SAMPLE, DeviceGeometry, calibrate_geometry
 from .ops.packing import DEFAULT_BUCKETS
 from .ops.pipeline import CompiledPipeline, process_documents_device, resolve_device
+from .parallel.mesh import DataMesh, data_mesh
 from .pipeline_builder import build_pipeline_from_config
 from .resilience.deadletter import DeadLetterSink
 from .resilience.retry import RetryPolicy
@@ -36,7 +41,7 @@ from .utils.trace import TRACER
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["run_pipeline"]
+__all__ = ["run_pipeline", "run_mesh"]
 
 
 class _Progress:
@@ -86,9 +91,13 @@ def run_pipeline(
     errors_file: Optional[str] = None,
     quiet: bool = False,
     auto_geometry: bool = False,
+    mesh: Optional[DataMesh] = None,
 ) -> AggregationResult:
     """Process one Parquet shard.  ``device`` defaults to ``cuda``; pass a
-    prebuilt ``pipeline`` to read its counters afterwards.
+    prebuilt ``pipeline`` to read its counters afterwards.  ``mesh``
+    shards every device batch's rows over its entries; by default
+    (:func:`run_mesh`) a run that names no device uses a mesh of every
+    visible GPU when there is more than one.
 
     ``errors_file`` opts into the dead-letter Parquet file: every Error
     outcome and every unreadable row lands there (the kept/excluded pair
@@ -128,12 +137,14 @@ def run_pipeline(
             deadletter.record_read_error(err)
 
     calibrate = backend == "device" and pipeline is None and auto_geometry
+    if backend == "device" and pipeline is None:
+        mesh = run_mesh(device, mesh)
     if calibrate:
         # Fails here without CUDA, before the reader starts, as building
         # the pipeline does.
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.devices[0])
     elif backend == "device" and pipeline is None:
-        pipeline = _build_pipeline(config, buckets, device_batch, device)
+        pipeline = _build_pipeline(config, buckets, device_batch, device, mesh=mesh)
     docs = _timed_iter(
         read_documents(
             input_file, text_column=text_column, id_column=id_column,
@@ -159,7 +170,10 @@ def run_pipeline(
     try:
         if calibrate:
             geometry, docs = _calibrate(docs, device)
-            pipeline = _build_pipeline(config, buckets, device_batch, device, geometry)
+            pipeline = _build_pipeline(
+                config, buckets, device_batch, device if mesh is None else None, geometry,
+                mesh,
+            )
         if backend == "device":
             outcomes = process_documents_device(
                 config, docs, on_read_error=on_read_error, pipeline=pipeline
@@ -196,16 +210,32 @@ def run_pipeline(
     return result
 
 
-def _build_pipeline(config, buckets, device_batch, device, geometry=None) -> CompiledPipeline:
+def run_mesh(device, mesh: Optional[DataMesh]) -> Optional[DataMesh]:
+    """The mesh of a device run: ``mesh`` when given; else, when the caller
+    names no ``device`` and more than one GPU is visible, a mesh of every
+    visible GPU (the JAX runner's ``data_mesh() if len(jax.devices()) > 1``);
+    else none (one device)."""
+    if mesh is not None or device is not None:
+        return mesh
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        return data_mesh()
+    return None
+
+
+def _build_pipeline(
+    config, buckets, device_batch, device, geometry=None, mesh=None
+) -> CompiledPipeline:
     """The device pipeline of a run: ``geometry`` when given (calibrated or
     recorded), else ``buckets`` (default ladder) at ``device_batch`` rows
-    (the device's default)."""
+    (the device's default); over ``mesh`` when given, its batch sizes
+    rounded to a multiple of its entries."""
     return CompiledPipeline(
         config,
         buckets=tuple(buckets) if buckets else DEFAULT_BUCKETS,
         batch_size=device_batch,
         device=device,
         geometry=geometry,
+        mesh=mesh,
     )
 
 

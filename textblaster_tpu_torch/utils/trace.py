@@ -59,7 +59,7 @@ import sys
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
@@ -616,7 +616,9 @@ class KernelSpans:
         self.enabled = False
         self._lock = threading.Lock()
         self._tls = threading.local()
-        self._pool: List[Any] = []
+        # Idle events as (device, event): an event records on the device
+        # it was made on only.
+        self._pool: List[Tuple[str, Any]] = []
         self._events: List[Dict[str, Any]] = []
         self._dir: Optional[str] = None
 
@@ -642,10 +644,11 @@ class KernelSpans:
             pending = self._tls.pending = []
         return pending
 
-    def _take(self):
+    def _take(self, device: str):
         with self._lock:
-            if self._pool:
-                return self._pool.pop()
+            for i in range(len(self._pool) - 1, -1, -1):
+                if self._pool[i][0] == device:
+                    return self._pool.pop(i)[1]
         import torch
 
         return torch.cuda.Event(enable_timing=True)
@@ -655,7 +658,7 @@ class KernelSpans:
         stream (the stream the launch goes to)."""
         import torch
 
-        ev = self._take()
+        ev = self._take(str(device))
         ev.record(torch.cuda.current_stream(device))
         return ev
 
@@ -663,22 +666,33 @@ class KernelSpans:
         """Record the launch's end event and keep the pair for the batch."""
         import torch
 
-        ev = self._take()
+        ev = self._take(str(device))
         ev.record(torch.cuda.current_stream(device))
-        self._pending().append((start, ev, kernel, key))
+        self._pending().append((start, ev, kernel, key, str(device)))
 
-    def resolve(self, clock, start, end, args: Dict[str, Any]) -> None:
+    def take_pending(self) -> list:
+        """The launches this thread made since the last batch, taken out of
+        its list: a mesh batch resolves each shard's launches with its own
+        device's clock (:meth:`resolve`'s ``pending``)."""
+        pending = self._pending()
+        out = list(pending)
+        pending.clear()
+        return out
+
+    def resolve(self, clock, start, end, args: Dict[str, Any], pending=None) -> None:
         """After the batch's own synchronize: one span for the batch
         (``start`` to ``end``) and one for each launch this thread made
-        since the last batch, its events handed back to the pool; ``clock``
-        maps events onto the trace clock (a :class:`DeviceClock` or its
-        :meth:`~DeviceClock.bracketed` mapping)."""
-        pending = self._pending()
+        since the last batch (or for each of ``pending``, from
+        :meth:`take_pending`), its events handed back to the pool;
+        ``clock`` maps events onto the trace clock (a :class:`DeviceClock`
+        or its :meth:`~DeviceClock.bracketed` mapping)."""
+        if pending is None:
+            pending = self._pending()
         ts = clock.to_us(start)
         events = [{"name": "device_batch", "ph": "X", "ts": round(ts, 3),
                    "dur": round(clock.to_us(end) - ts, 3), "pid": 0, "tid": 1,
                    "args": args}]
-        for k_start, k_end, kernel, key in pending:
+        for k_start, k_end, kernel, key, _ in pending:
             k_ts = clock.to_us(k_start)
             events.append({
                 "name": f"{kernel}[{','.join(str(v) for v in key[1:])}]",
@@ -688,7 +702,7 @@ class KernelSpans:
             })
         with self._lock:
             self._events.extend(events)
-            self._pool.extend(ev for p in pending for ev in p[:2])
+            self._pool.extend((p[4], ev) for p in pending for ev in p[:2])
         pending.clear()
 
     def close(self) -> Optional[str]:
