@@ -194,7 +194,28 @@ Phases (any failure exits non-zero without the final result line):
    for row (the calibrated run's by id) and the non-checkpointed CLI
    run's by id, every column; one ``checkpoint_commit`` journal record a
    chunk; no checkpoint directory left.
-12. Fault phase: the degradation ladder, the breaker and the watchdog,
+12. The data mesh over the first 1,000 documents (2,000 until the gang
+   phase came, to make room for it): the chain schedule, serially, on
+   ``[cuda:0]``, ``[cuda:0, cuda:0]`` and the default mesh, each at parity
+   1.0 and equal to the single-device windowed run with tails off over
+   the subset (restricted to its documents), every main-path kernel
+   launched on every shard; every (bucket, phase) stage dict of the
+   two-shard mesh ``torch.equal`` to one device's; ``dryrun_multichip``;
+   docs/s beside the single-device runs.
+13. The multi-host gang: two ranks as processes of the port's CLI
+   (``--coordinator 127.0.0.1:<free port> --num-processes 2``, each run by
+   ``GANG_RANK``, a small program that calls ``cli.main`` and writes the rank's
+   kernel launches beside its shard) on this one card over the CLI phase's
+   2,000 documents, chain schedule, windowed, with ``--run-report``,
+   ``--trace``, ``--events-file`` and ``--errors-file``: both exit 0 and
+   leave no shard; the merged files equal, row for row, the port's
+   in-process windowed runs over rows 0-999 and 1000-1999 concatenated;
+   parity 1.0 against the host oracle; the merged report's counts the
+   files' rows, with two hosts; both traces hold the clock handshake;
+   every rank launched every main-path kernel on the card.  Prints each
+   rank's wall seconds and docs/s, the gang's wall beside the CLI phase's
+   single-process run and the exchanges posted.
+14. Fault phase: the degradation ladder, the breaker and the watchdog,
    each run with zero backoff and a breaker threshold of 2 and held to a
    fault-free run of the same documents (kept and excluded rows equal by
    id, every column): over the first 1,000 documents a fault-free run
@@ -213,9 +234,10 @@ Phases (any failure exits non-zero without the final result line):
    a fatal ``ValueError`` that must propagate with no dispatch thread
    left.  Each run prints docs/s beside its fault-free run's, the ladder
    and watchdog counters and the launches at the split rows.
-13. Output: a ``{"kernels": [...]}`` line (each kernel's launches on
+15. Output: a ``{"kernels": [...]}`` line (each kernel's launches on
    the chain main path, and by path: chain, badwords (a), Danish badwords
-   (b)), the ``nvidia-smi`` line, and as
+   (b); by shard of the two-shard mesh; by rank of the gang), the
+   ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Long output (per-shape kernel timings, the main path's counters) is also
@@ -228,6 +250,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3113,6 +3136,9 @@ def checkpoint_phase(rows, work: str, cli_run, known_keys, device: str = "cuda")
 
 #: The main path's kernels, each to be launched on every shard of a mesh run.
 MESH_KERNELS = ("chain_scan", "fused_scan", "affine_scan", "dfa_scan", "sort2")
+#: The mesh runs' documents: the first MESH_DOCS (2,000 until the gang
+#: phase came), so that the gang phase fits the script's time.
+MESH_DOCS = 1000
 #: Rows of the stage-level batches (each bucket's corpus documents).
 MESH_STAGE_ROWS = 16
 
@@ -3153,17 +3179,18 @@ def mesh_stage_checks(corpus, config, device: str = "cuda") -> dict:
 
 
 def mesh_phase(rows, work: str, oracle, summary, device: str = "cuda") -> dict:
-    """The data mesh: the main path (chain schedule) over the subset's
-    documents on ``[cuda:0]``, ``[cuda:0, cuda:0]`` (two shards on two
-    streams of the card) and the default mesh (every visible GPU), each at
-    parity 1.0 against the host oracle, its kept and excluded rows those
-    of the single-device windowed run with tails off over the same file
-    (the mesh keeps every document on the device), and every main-path
-    kernel launched on every shard; the stage level (:func:`mesh_stage_checks`);
-    ``dryrun_multichip`` over every visible GPU and over two entries; the
-    mesh runs' docs/s beside the single-device windowed and serial runs of
-    the same documents in this call.  A CPU rehearsal (``device="cpu"``)
-    takes three CPU entries for the default mesh."""
+    """The data mesh: the main path (chain schedule) over the first
+    ``MESH_DOCS`` documents on ``[cuda:0]``, ``[cuda:0, cuda:0]`` (two
+    shards on two streams of the card) and the default mesh (every visible
+    GPU), each at parity 1.0 against the host oracle, its kept and excluded
+    rows those of the single-device windowed run with tails off over the
+    subset (the mesh keeps every document on the device), restricted to
+    its documents, and every main-path kernel launched on every shard; the
+    stage level (:func:`mesh_stage_checks`); ``dryrun_multichip`` over
+    every visible GPU and over two entries; the mesh runs' docs/s beside
+    the single-device windowed and serial runs of the subset in this call.
+    A CPU rehearsal (``device="cpu"``) takes three CPU entries for the
+    default mesh."""
     import torch
 
     from textblaster_tpu_torch.config.pipeline import load_pipeline_config
@@ -3172,12 +3199,13 @@ def mesh_phase(rows, work: str, oracle, summary, device: str = "cuda") -> dict:
 
     t0 = time.perf_counter()
     config = load_pipeline_config(CONFIG)
-    sub = rows[:STAGED_SUBSET]
-    sub_inp = os.path.join(work, "corpus_staged.parquet")
+    sub = rows[:MESH_DOCS]
+    sub_inp = os.path.join(work, "corpus_mesh.parquet")
+    write_parquet(sub_inp, sub)
     sub_ids = {r[0] for r in sub}
     host_kept, host_excl = oracle
     single = summary["chain_tails_off"]
-    ref = [read_set(p) for p in single["outputs"]]
+    ref = [{r for r in read_set(p) if r[0] in sub_ids} for p in single["outputs"]]
     one = "cuda:0" if device == "cuda" else device
     meshes = (("mesh_1", data_mesh([one])), ("mesh_2", data_mesh([one, one])),
               ("mesh_default", data_mesh() if device == "cuda" else data_mesh([one] * 3)))
@@ -3227,8 +3255,184 @@ def mesh_phase(rows, work: str, oracle, summary, device: str = "cuda") -> dict:
     out["docs_per_s"] = speeds
     out["seconds"] = time.perf_counter() - t0
     card = smi_line() if device == "cuda" else device
-    print(f"mesh speed (docs/s over the same {len(sub)} documents, this call; "
+    print(f"mesh speed (docs/s, the meshes over the first {len(sub)} documents, the "
+          f"single-device runs over the first {STAGED_SUBSET}, this call; "
           f"{card}): {json.dumps(speeds)}; mesh phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+#: One rank of the gang: ``cli.main`` on the arguments after the JSON
+#: path, with the kernels' launch counters set to 0 just before; the rank's
+#: exit code, wall seconds, launches, exchanges posted and the device it
+#: ran on go to the JSON file.
+GANG_RANK = """
+import json, sys, time
+import torch
+from textblaster_tpu_torch import cli
+from textblaster_tpu_torch.ops import scan, sort
+from textblaster_tpu_torch.utils.metrics import METRICS
+out, argv = sys.argv[1], sys.argv[2:]
+for d in (scan.LAUNCHES, sort.LAUNCHES):
+    for k in d:
+        d[k] = 0
+t0 = time.perf_counter()
+rc = cli.main(argv)
+wall = time.perf_counter() - t0
+with open(out, "w") as f:
+    json.dump({"rc": rc, "wall_s": wall, "launches": {**scan.LAUNCHES, **sort.LAUNCHES},
+               "exchanges": METRICS.get("multihost_exchange_posts_total"),
+               "cuda": torch.cuda.is_initialized()}, f)
+sys.exit(rc)
+"""
+GANG_PROCESSES = 2
+GANG_TIMEOUT_S = 300
+
+
+def _parquet_rows(path):
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(path).to_pydict()
+    return list(zip(t["id"], t["text"], t["metadata"]))
+
+
+def gang_phase(rows, work: str, oracle, cli_run, device: str = "cuda") -> dict:
+    """The multi-host gang on the card: two ranks as processes of the
+    port's CLI (``--coordinator 127.0.0.1:<free port> --num-processes 2``,
+    each through :data:`GANG_RANK`) over the CLI phase's documents, chain
+    schedule, windowed, with ``--run-report``, ``--trace``,
+    ``--events-file`` and ``--errors-file``; both on this card.  Both must
+    exit 0 and leave no shard; the merged files must equal, row for row,
+    the port's in-process windowed runs over each rank's stripe,
+    concatenated in rank order, and the host oracle (parity 1.0); the
+    merged report's counts the files' rows, with two hosts; both traces
+    must hold the clock handshake; every rank must have launched every
+    main-path kernel on the card.  Prints each rank's wall seconds and
+    docs/s, the gang's wall beside the CLI phase's single-process run over
+    the same documents, and the exchanges posted.  A CPU rehearsal
+    (``device="cpu"``) passes ``--device cpu`` to the ranks."""
+    import pyarrow.parquet as pq
+
+    t_phase = time.perf_counter()
+    config = load_config()
+    inp = cli_run["input"]
+    sub = rows[:CLI_DOCS]
+    stride = -(-len(sub) // GANG_PROCESSES)
+    refs = []
+    for r in range(GANG_PROCESSES):
+        part = os.path.join(work, f"corpus_gang{r}.parquet")
+        write_parquet(part, sub[r * stride:(r + 1) * stride])
+        run = device_run(config, part, work, f"gang_ref{r}", device)
+        refs.append([_parquet_rows(p) for p in run["outputs"]])
+    gang_dir = os.path.join(work, "gang")
+    os.makedirs(gang_dir, exist_ok=True)
+    for f in os.listdir(gang_dir):
+        os.remove(os.path.join(gang_dir, f))
+    kept, excl, errors = (os.path.join(gang_dir, f) for f in
+                          ("kept.parquet", "excluded.parquet", "errors.parquet"))
+    report, trace, events = (os.path.join(gang_dir, f) for f in
+                             ("report.json", "trace.json", "events.jsonl"))
+    port = _free_loopback_port()
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(GANG_PROCESSES):
+            argv = ["run", "-i", inp, "-c", CONFIG, "-o", kept, "-e", excl,
+                    "--errors-file", errors, "--run-report", report, "--trace", trace,
+                    "--events-file", events, "--coordinator", f"127.0.0.1:{port}",
+                    "--num-processes", str(GANG_PROCESSES), "--process-id", str(r)]
+            if device != "cuda":
+                argv += ["--device", device]
+            logs.append(open(os.path.join(gang_dir, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", GANG_RANK, os.path.join(gang_dir, f"rank{r}.json"),
+                 *argv], cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        codes = [p.wait(timeout=GANG_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    gang_wall = time.perf_counter() - t0
+    outputs = []
+    for r in range(GANG_PROCESSES):
+        with open(os.path.join(gang_dir, f"rank{r}.log")) as f:
+            outputs.append(f.read())
+        for line in outputs[-1].splitlines():
+            print(f"  gang rank {r} | {line}", flush=True)
+    if codes != [0] * GANG_PROCESSES:
+        fail(f"gang: the ranks exited {codes}")
+    ranks = []
+    for r in range(GANG_PROCESSES):
+        with open(os.path.join(gang_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        m = re.search(r"^Processed (\d+) documents in \d+\.\d\ds \((\d+\.\d) docs/sec\)",
+                      outputs[r], re.M)
+        if not m:
+            fail(f"gang: rank {r} printed no summary line")
+        ranks[-1]["summary_docs_per_s"] = float(m.group(2))
+    leftover = [f for f in os.listdir(gang_dir) if ".shard" in f]
+    if leftover:
+        fail(f"gang: shards left behind: {leftover}")
+    got = [_parquet_rows(p) for p in (kept, excl)]
+    want = [[row for ref in refs for row in ref[i]] for i in range(2)]
+    if got != want:
+        fail(f"gang: the merged files ({len(got[0])} kept, {len(got[1])} excluded rows) are "
+             f"not the stripes' in-process runs in rank order ({len(want[0])}, {len(want[1])})")
+    host_kept, host_excl = oracle
+    ids = {r[0] for r in sub}
+    want_kept = {r for r in host_kept if r[0] in ids}
+    want_excl = {r for r in host_excl if r[0] in ids}
+    agree = len(set(got[0]) & want_kept) + len(set(got[1]) & want_excl)
+    parity = agree / max(len(want_kept) + len(want_excl), 1)
+    if parity != 1.0 or set(got[0]) != want_kept or set(got[1]) != want_excl:
+        fail(f"gang: parity {parity} against the host oracle")
+    with open(report) as f:
+        rep = json.load(f)
+    n_errors = pq.ParquetFile(errors).metadata.num_rows
+    if not (rep["num_hosts"] == GANG_PROCESSES and rep["counts"]["received"] == len(sub)
+            and rep["counts"]["success"] == len(got[0])
+            and rep["counts"]["filtered"] == len(got[1])
+            and rep["counts"]["errors"] == n_errors
+            and rep["config"]["num_processes"] == GANG_PROCESSES):
+        fail(f"gang: report counts {rep['counts']}, {rep.get('num_hosts')} hosts, against "
+             f"{len(got[0])} kept, {len(got[1])} excluded, {n_errors} errors")
+    for path in [trace] + [f"{trace}.host{r}" for r in range(1, GANG_PROCESSES)]:
+        with open(path) as f:
+            if "trace_clock_offset" not in f.read():
+                fail(f"gang: {path} holds no clock handshake")
+    for r, rank in enumerate(ranks):
+        if device == "cuda" and (not rank["cuda"]
+                                 or any(rank["launches"][k] <= 0 for k in MESH_KERNELS)):
+            fail(f"gang: rank {r} launched {rank['launches']} (cuda {rank['cuda']})")
+    single_rate = float(re.match(SUMMARY_RE, cli_run["summary_line"]).group(2))
+    out = {
+        "documents": len(sub), "processes": GANG_PROCESSES, "gang_wall_s": gang_wall,
+        "gang_docs_per_s": len(sub) / gang_wall,
+        "single_process_docs_per_s": single_rate,
+        "single_process_wall_s": cli_run["wall_seconds"],
+        "ranks": [{"wall_s": rank["wall_s"], "docs": len(sub[r * stride:(r + 1) * stride]),
+                   "docs_per_s": len(sub[r * stride:(r + 1) * stride]) / rank["wall_s"],
+                   "summary_docs_per_s": rank["summary_docs_per_s"],
+                   "exchanges": rank["exchanges"], "launches": rank["launches"]}
+                  for r, rank in enumerate(ranks)],
+        "kept": len(got[0]), "excluded": len(got[1]), "errors": n_errors,
+        "decision_parity": parity,
+    }
+    out["seconds"] = time.perf_counter() - t_phase
+    card = smi_line() if device == "cuda" else device
+    print(f"gang ({card}): {GANG_PROCESSES} ranks over {len(sub)} documents in "
+          f"{gang_wall:.2f} s ({out['gang_docs_per_s']:.2f} docs/s, process start "
+          f"included) against the single-process CLI run's {single_rate} docs/s "
+          f"({cli_run['wall_seconds']:.2f} s); ranks "
+          + "; ".join(f"{r}: {x['wall_s']:.2f} s in cli.main, {x['docs_per_s']:.2f} docs/s, "
+                      f"summary {x['summary_docs_per_s']} docs/s, {x['exchanges']:.0f} exchanges"
+                      for r, x in enumerate(out["ranks"]))
+          + f"; parity {parity}, files equal to the stripes' in-process runs; "
+          f"launches by rank {[{k: x['launches'][k] for k in MESH_KERNELS} for x in out['ranks']]}"
+          f"; phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3639,6 +3843,7 @@ def main() -> int:
     native = native_phase(rows, work, oracle, native_info)
     checkpoint = checkpoint_phase(rows, work, cli_run, known_keys)
     mesh = mesh_phase(rows, work, oracle, summary)
+    gang = gang_phase(rows, work, oracle, cli_run)
     t0 = time.perf_counter()
     faults = fault_phase(rows, work, checked)
     print(f"fault phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3668,6 +3873,8 @@ def main() -> int:
                                  "danish_badwords": badwords["danish"]["launches"][k]},
             # The two-shard mesh run over the subset, shard by shard.
             "launches_by_shard": [s[k] for s in mesh["meshes"]["mesh_2"]["shard_launches"]],
+            # The two-rank gang over the CLI phase's documents, rank by rank.
+            "launches_by_rank": [r["launches"][k] for r in gang["ranks"]],
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -3681,7 +3888,8 @@ def main() -> int:
                    "per_shape": per_shape, "launch_losses": losses, "dup_walk": walk,
                    "main_path": summary, "profile": profiled, "cli": cli_run,
                    "auto_geometry": geometry, "badwords": badwords, "native": native,
-                   "checkpoint": checkpoint, "mesh": mesh, "fault_phase": faults,
+                   "checkpoint": checkpoint, "mesh": mesh, "gang": gang,
+                   "fault_phase": faults,
                    "total_seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

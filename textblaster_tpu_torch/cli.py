@@ -6,9 +6,10 @@ The port's counterpart of ``textblaster_tpu/cli.py``, with the flags of its
 ``--no-overlap``, ``--errors-file``, ``--stage-deadline-s``,
 ``--metrics-port``, ``--run-report``, ``--trace``, ``--trace-device``,
 ``--events-file``, ``--slo``, ``--doc-sample-rate``, ``--profile``,
-``--checkpoint-dir`` and ``--checkpoint-every`` among them), spelled the
-same way and refused in
-the same combinations, plus ``--backend device|host`` and ``--device cuda|cpu``
+``--checkpoint-dir`` and ``--checkpoint-every``, and the multi-host
+``--coordinator``, ``--num-processes``, ``--process-id`` and ``--force``
+among them), spelled the same way and refused in the same combinations,
+plus ``--backend device|host`` and ``--device cuda|cpu``
 (``cuda`` is the default; the run fails rather than fall back when CUDA is
 absent).  Without ``--device``, a host with more than one visible GPU runs
 a mesh of all of them (``CUDA_VISIBLE_DEVICES`` chooses them), as the JAX
@@ -209,6 +210,21 @@ def build_parser() -> argparse.ArgumentParser:
                           "chunk (the reference cannot do this)")
     run.add_argument("--checkpoint-every", type=int, default=8192,
                      help="Documents per checkpointed chunk")
+    run.add_argument("--coordinator", default=None,
+                     help="host:port of process 0 — enables the multi-host "
+                          "path: every process runs this same command "
+                          "with its own --process-id, reads its row stripe, "
+                          "and process 0 merges the per-host output shards "
+                          "(the AMQP-address analogue, utils/common.rs:15)")
+    run.add_argument("--num-processes", type=int, default=1,
+                     help="Total participating processes (with --coordinator)")
+    run.add_argument("--process-id", type=int, default=0,
+                     help="This process's rank (with --coordinator)")
+    run.add_argument("--force", action="store_true",
+                     help="With --coordinator: remove stale *.shard* "
+                          "leftovers from a previous crashed run instead of "
+                          "failing fast when they would be silently ignored "
+                          "by the final merge")
 
     val = sub.add_parser("validate-config", help="Validate a pipeline configuration and exit")
     val.add_argument("-c", "--pipeline-config", default="configs/pipeline_config.yaml")
@@ -232,7 +248,12 @@ def _cmd_validate(args: argparse.Namespace) -> int:
 
 def _cmd_run(args: argparse.Namespace) -> int:
     init_logging("textblast")
-    setup_prometheus_metrics(args.metrics_port)
+    metrics_port = args.metrics_port
+    if metrics_port is not None and args.coordinator:
+        # Co-located processes (several ranks on one host) would collide on
+        # the bind; rank-offset ports keep every /metrics reachable.
+        metrics_port += args.process_id
+    setup_prometheus_metrics(metrics_port)
     try:
         config = load_pipeline_config(args.pipeline_config)
     except PipelineError as e:
@@ -287,6 +308,15 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print(f"Invalid --doc-sample-rate value: {args.doc_sample_rate}",
               file=sys.stderr)
         return 1
+    if args.coordinator and args.checkpoint_dir:
+        print("--coordinator and --checkpoint-dir are mutually exclusive "
+              "(multihost runs restart per shard; use smaller input stripes "
+              "for resumability)", file=sys.stderr)
+        return 1
+    if args.coordinator and args.backend == "host":
+        print("--coordinator requires the device pipeline "
+              "(--backend device, not host)", file=sys.stderr)
+        return 1
 
     # SLO objectives: config block first, --slo overrides per key, the env
     # fallback only when no flag was passed (mirrors TEXTBLAST_STAGE_DEADLINE_S).
@@ -305,13 +335,23 @@ def _cmd_run(args: argparse.Namespace) -> int:
         slo_objectives[key] = target
 
     from .checkpoint import run_checkpointed
+    from .errors import PeerFailure
+    from .parallel.multihost import run_multihost
     from .resilience.watchdog import WATCHDOG
-    from .runner import _Progress, run_pipeline
+    from .runner import _Progress, run_mesh, run_pipeline
 
     # Armed after every check that can end the run early: from here on,
     # every exit path closes what it arms (the finally below).
     if args.trace:
-        TRACER.configure(args.trace, process_name="textblast", pid=0)
+        trace_path = args.trace
+        if args.coordinator and args.process_id:
+            trace_path = f"{args.trace}.host{args.process_id}"
+        TRACER.configure(
+            trace_path,
+            process_name=f"textblast-host{args.process_id}"
+            if args.coordinator else "textblast",
+            pid=args.process_id,
+        )
     if args.doc_sample_rate > 0:
         TELEMETRY.configure(args.doc_sample_rate)
     if args.profile:
@@ -325,7 +365,10 @@ def _cmd_run(args: argparse.Namespace) -> int:
     if events_path or slo_objectives:
         # Objectives without a journal path still arm the ring buffer:
         # slo_alert events must land somewhere the flight recorder can see.
-        EVENTS.configure(events_path, rank=0)
+        journal_path = events_path
+        if journal_path and args.coordinator and args.process_id:
+            journal_path = f"{events_path}.host{args.process_id}"
+        EVENTS.configure(journal_path, rank=args.process_id)
     if slo_objectives:
         SLO.configure(
             slo_objectives,
@@ -334,8 +377,16 @@ def _cmd_run(args: argparse.Namespace) -> int:
             burn_threshold=config.slo.burn_threshold,
             tick_s=config.slo.tick_s,
         )
-    # The JAX package's provenance keys; the flags the port does not have
-    # yet keep their "off" values.
+    # The JAX package's provenance keys (the flags the port does not have
+    # yet keep their "off" values), and the port's "device": the devices
+    # this process ran on (a mesh's entries, else the one device).
+    if args.backend == "host":
+        devices = "host"
+    else:
+        mesh = run_mesh(args.device, None)
+        devices = (
+            [str(d) for d in mesh.devices] if mesh is not None else args.device or "cuda"
+        )
     provenance = {
         "entry": "textblast-torch run",
         "version": __version__,
@@ -343,14 +394,14 @@ def _cmd_run(args: argparse.Namespace) -> int:
         "steps": [s.type for s in config.pipeline],
         "input_file": args.input_file,
         "backend": args.backend,
-        "device": args.device or "cuda",
+        "device": devices,
         "buckets": list(buckets) if buckets else None,
         "device_batch": args.device_batch,
         "auto_geometry": bool(args.auto_geometry),
         "overlap_enabled": bool(config.overlap.enabled),
         "pipeline_depth": int(config.overlap.pipeline_depth),
         "speculate_depth": None,
-        "num_processes": 1,
+        "num_processes": args.num_processes,
         "doc_sample_rate": int(args.doc_sample_rate),
         "profile": bool(args.profile),
         "stage_deadline_s": float(config.resilience.stage_deadline_s),
@@ -372,7 +423,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
             "run_start",
             input=args.input_file,
             backend=args.backend,
-            num_processes=1,
+            num_processes=args.num_processes,
         )
     start = time.perf_counter()
     fallbacks_before = METRICS.get("worker_host_fallback_total")
@@ -380,7 +431,29 @@ def _cmd_run(args: argparse.Namespace) -> int:
         with device_profile(
             args.trace_device, (args.device or "cuda") if args.backend == "device" else "host"
         ):
-            if args.checkpoint_dir:
+            if args.coordinator:
+                result = run_multihost(
+                    config,
+                    args.input_file,
+                    args.output_file,
+                    args.excluded_file,
+                    coordinator=args.coordinator,
+                    num_processes=args.num_processes,
+                    process_id=args.process_id,
+                    text_column=args.text_column,
+                    id_column=args.id_column,
+                    buckets=buckets,
+                    read_batch_size=args.batch_size,
+                    device_batch=args.device_batch,
+                    auto_geometry=args.auto_geometry,
+                    errors_file=args.errors_file,
+                    force=args.force,
+                    run_report=args.run_report,
+                    provenance=provenance,
+                    device=args.device,
+                    quiet=args.quiet,
+                )
+            elif args.checkpoint_dir:
                 progress = _Progress(enabled=not args.quiet)
                 result = run_checkpointed(
                     config=config,
@@ -420,13 +493,55 @@ def _cmd_run(args: argparse.Namespace) -> int:
                 )
         if EVENTS.enabled:
             EVENTS.emit("run_end", exit_code=0)
+    except PeerFailure as e:
+        # A broken gang: run_multihost already tore the process group down
+        # without a barrier, so no thread of the store holds this process
+        # and the ordinary return exits at once.
+        print(f"Pipeline run failed: {e}", file=sys.stderr, flush=True)
+        if EVENTS.enabled:
+            # Journal the diagnosis and leave a flight-recorder dump beside
+            # the output: the post-mortem when the gang dies faster than
+            # any scrape.
+            EVENTS.emit(
+                "fatal",
+                reason="peer_failure",
+                missing_ranks=list(e.missing_ranks),
+                dead_ranks=list(e.dead_ranks),
+                seq=e.seq,
+            )
+            EVENTS.emit("run_end", exit_code=1)
+            flight_record(
+                args.output_file, rank=args.process_id, reason="peer_failure", exc=e
+            )
+        if args.run_report:
+            # A partial, schema-tagged report naming the failed exchange.
+            # Best-effort: the abort path must never mask the diagnosis.
+            try:
+                report = build_run_report(
+                    baseline=report_baseline,
+                    wall_time_s=time.perf_counter() - start,
+                    counts={},
+                    provenance=provenance,
+                )
+                report["aborted"] = True
+                report["peer_failure"] = {
+                    "message": str(e),
+                    "missing_ranks": list(e.missing_ranks),
+                    "dead_ranks": list(e.dead_ranks),
+                    "seq": e.seq,
+                    "epoch": e.epoch,
+                }
+                write_run_report(args.run_report, report)
+            except Exception:
+                pass
+        return 1
     except PipelineError as e:
         print(f"Pipeline run failed: {e}", file=sys.stderr)
         if EVENTS.enabled:
             EVENTS.emit("fatal", reason="pipeline_error", error=str(e))
             EVENTS.emit("run_end", exit_code=1)
             flight_record(
-                args.output_file, rank=0, reason="pipeline_error", exc=e
+                args.output_file, rank=args.process_id, reason="pipeline_error", exc=e
             )
         return 1
     except BaseException as e:
@@ -435,7 +550,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
         # dump behind first, then let it propagate.
         if EVENTS.enabled:
             EVENTS.emit("fatal", reason=type(e).__name__)
-            flight_record(args.output_file, rank=0, reason="unhandled", exc=e)
+            flight_record(
+                args.output_file, rank=args.process_id, reason="unhandled", exc=e
+            )
         raise
     finally:
         TRACER.close()
@@ -540,7 +657,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
                 file=sys.stderr,
             )
 
-    if args.run_report:
+    if args.run_report and not args.coordinator:
+        # Coordinator runs write the merged report from run_multihost
+        # (process 0, after the snapshot exchange) instead.
         report = build_run_report(
             baseline=report_baseline,
             wall_time_s=elapsed,

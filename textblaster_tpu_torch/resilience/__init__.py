@@ -18,7 +18,10 @@
 * :mod:`~textblaster_tpu_torch.resilience.watchdog` — :data:`WATCHDOG`, the
   stall watchdog over the host-side blocking waits.
 
-Not ported yet: the multi-host arms (``membership.py``, ``negotiated.py``).
+Not ported yet: the multi-host arms.  The gang
+(``parallel/multihost.py``) names no rank dead: the negotiated round guard
+(``negotiated.py``) comes with the negotiated rounds, the liveness leases
+and elastic membership (``membership.py``) after them.
 """
 
 from .breaker import CircuitBreaker

@@ -6,7 +6,10 @@ orchestration: ``device`` (the port's device pipeline on ``cuda``, or on
 the CPU when asked) and ``host`` (the host oracle executor, one document at
 a time — the parity baseline).  As the JAX runner meshes every device of a
 host, a run that names no device shards its batches over every visible GPU
-when there is more than one (``CUDA_VISIBLE_DEVICES`` chooses them).
+when there is more than one (``CUDA_VISIBLE_DEVICES`` chooses them).  A
+multi-host rank (``parallel/multihost.py``) runs its row stripe through the
+same path (``_run_rows``), so it writes what a single-process run over the
+stripe writes.
 """
 
 from __future__ import annotations
@@ -121,7 +124,50 @@ def run_pipeline(
 
     Unless ``quiet``, a progress line goes to stderr when it is a
     terminal."""
-    if auto_geometry and pipeline is not None:
+    deadletter = DeadLetterSink(errors_file) if errors_file is not None else None
+    try:
+        return _run_rows(
+            config, input_file, output_file, excluded_file,
+            text_column=text_column, id_column=id_column, backend=backend,
+            device=device, read_batch_size=read_batch_size,
+            device_batch=device_batch, buckets=buckets, pipeline=pipeline,
+            deadletter=deadletter, quiet=quiet, auto_geometry=auto_geometry,
+            mesh=mesh,
+        )
+    finally:
+        if deadletter is not None:
+            deadletter.close()
+
+
+def _run_rows(
+    config: PipelineConfig,
+    input_file: str,
+    output_file: str,
+    excluded_file: str,
+    *,
+    text_column: str = "text",
+    id_column: str = "id",
+    backend: str = "device",
+    device=None,
+    read_batch_size: int = 1024,
+    device_batch: Optional[int] = None,
+    buckets: Optional[Sequence[int]] = None,
+    pipeline: Optional[CompiledPipeline] = None,
+    deadletter: Optional[DeadLetterSink] = None,
+    quiet: bool = False,
+    auto_geometry: bool = False,
+    mesh: Optional[DataMesh] = None,
+    geometry: Optional[DeviceGeometry] = None,
+    skip_rows: int = 0,
+    take: Optional[int] = None,
+) -> AggregationResult:
+    """:func:`run_pipeline` over rows ``[skip_rows, skip_rows + take)`` of
+    ``input_file`` (every row from ``skip_rows`` when ``take`` is None),
+    into the given paths and the given dead-letter sink (left open).  A
+    ``geometry`` (a multi-host run's negotiated one) builds the pipeline
+    on it.  The multi-host runner runs each rank's stripe through here, so
+    a rank writes what a single-process run over its stripe writes."""
+    if auto_geometry and (pipeline is not None or geometry is not None):
         raise ValueError(
             "run_pipeline: auto_geometry calibrates its own pipeline; "
             "pass no pipeline"
@@ -129,7 +175,6 @@ def run_pipeline(
     progress = _Progress(enabled=not quiet)
     read_errors = [0]
     read_seconds = [0.0]
-    deadletter = DeadLetterSink(errors_file) if errors_file is not None else None
 
     def on_read_error(err) -> None:
         read_errors[0] += 1
@@ -144,15 +189,18 @@ def run_pipeline(
         # the pipeline does.
         device = resolve_device(device if mesh is None else mesh.devices[0])
     elif backend == "device" and pipeline is None:
-        pipeline = _build_pipeline(config, buckets, device_batch, device, mesh=mesh)
-    docs = _timed_iter(
-        read_documents(
-            input_file, text_column=text_column, id_column=id_column,
-            batch_size=read_batch_size,
-            retry_policy=RetryPolicy.from_config(config.resilience),
-        ),
-        read_seconds,
+        pipeline = _build_pipeline(
+            config, buckets, device_batch, device, geometry, mesh=mesh
+        )
+    rows = read_documents(
+        input_file, text_column=text_column, id_column=id_column,
+        batch_size=read_batch_size,
+        retry_policy=RetryPolicy.from_config(config.resilience),
+        skip_rows=skip_rows,
     )
+    if take is not None:
+        rows = islice(rows, take)  # one stream item per Parquet row
+    docs = _timed_iter(rows, read_seconds)
     oc = config.overlap
     overlapped = (
         backend == "device"
@@ -193,17 +241,12 @@ def run_pipeline(
             write_queue=oc.write_queue if overlapped else 0,
         )
     finally:
-        # Stop the pipeline's dispatch thread and the read-ahead thread, and
-        # close the dead-letter file, on every exit path, not when a
-        # traceback lets go of the generator.
-        try:
-            if outcomes is not None:
-                outcomes.close()
-            if overlapped:
-                doc_source.close()
-        finally:
-            if deadletter is not None:
-                deadletter.close()
+        # Stop the pipeline's dispatch thread and the read-ahead thread on
+        # every exit path, not when a traceback lets go of the generator.
+        if outcomes is not None:
+            outcomes.close()
+        if overlapped:
+            doc_source.close()
     progress.finish()
     result.read_errors = read_errors[0]
     result.seconds["read"] = read_seconds[0]
